@@ -1,0 +1,18 @@
+"""star_tpu_torch: the star_tpu aligner in PyTorch, with its device kernels
+written by hand in CUDA C++ for NVIDIA Hopper (sm_90a).
+
+Same layout and module names as star_tpu, which stays the reference the port
+is tested against:
+  * genome/, align/, io/, params, stats, constants: host stages, copied
+    unchanged from star_tpu (the port imports nothing of star_tpu);
+  * ops/fetch.py + ops/csrc/fetch_rows.cu: the aligned row-fetch kernel
+    that serves every random access of the suffix-array search;
+  * ops/sa_search.py: batched MMP search over device-resident index tensors;
+  * ops/pipeline.py: the seed loop on the device, DeviceAligner;
+  * ops/batch_engine.py: the numpy windows/stitch/extend engine;
+  * run.py: alignReads entry point (``python -m star_tpu_torch``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,82 @@
+"""Tests of star_tpu_torch that need an NVIDIA GPU: the hand-written CUDA
+kernels against their plain PyTorch versions, and the MMP search on the card
+against the host oracle.  They skip where no card is present.  This file
+imports neither jax nor star_tpu, so on a machine with a card and no jax it
+runs as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from star_tpu_torch.ops import fetch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLD = os.path.join(ROOT, "tests", "golden", "small")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_raw,rows", [(300_001, 70_000), (1 << 24, 262_144)])
+def test_fetch_rows_kernel_matches_plain(cuda, n_raw, rows):
+    rng = np.random.default_rng(n_raw)
+    raw = rng.integers(-128, 128, size=n_raw, dtype=np.int8)
+    tab = torch.from_numpy(fetch.pad_table(raw)).to(cuda)
+    off = rng.integers(-n_raw // 8, n_raw, size=rows)
+    off[:6] = [-1, 0, 1023, 1024, n_raw - 1, (n_raw // 1024) * 1024 - 1]
+    off = torch.from_numpy(off).to(cuda)
+    n0 = fetch.LAUNCHES
+    got = fetch.fetch_rows(tab, off)
+    torch.cuda.synchronize()
+    assert fetch.LAUNCHES == n0 + 1
+    want = fetch._fetch_rows_torch(tab, off)
+    live = off >= 0
+    assert torch.equal(got[live], want[live])
+
+
+@pytest.mark.cuda
+def test_fetch_rows_kernel_refuses_bad_inputs(cuda):
+    tab = torch.from_numpy(fetch.pad_table(np.zeros(5000, np.int8))).to(cuda)
+    off = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        fetch.fetch_rows(tab[16:], off)             # not a multiple of 1024
+    with pytest.raises(ValueError):
+        fetch.fetch_rows(tab, off.int())            # int32 offsets
+    with pytest.raises(ValueError):
+        fetch.fetch_rows(tab, off.cpu())            # offsets on another device
+    assert fetch.fetch_rows(tab, off[:0]).shape == (0, fetch.FET)
+
+
+@pytest.mark.cuda
+def test_mmp_on_card_matches_host(cuda):
+    from star_tpu_torch.align.seed import mmp_search
+    from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.ops.sa_search import DeviceIndex, make_mmp_fn
+    gi = GenomeIndex.load(os.path.join(GOLD, "genome_idx"))
+    rng = np.random.default_rng(0)
+    n, ql = 512, 128
+    qs = np.full((n, ql), -1, np.int8)
+    qlen = rng.integers(1, 100, size=n)
+    for b in range(n):
+        if b % 2:
+            qs[b, :qlen[b]] = rng.integers(0, 4, size=qlen[b])
+        else:
+            p0 = int(rng.integers(0, gi.n_genome - 200))
+            q = gi.G[p0:p0 + qlen[b]]
+            qs[b, :qlen[b]] = np.where(q > 3, 0, q)
+    mmp = make_mmp_fn(DeviceIndex.build(gi, ql=ql, device=cuda))
+    n0 = fetch.LAUNCHES
+    got = np.stack([t.cpu().numpy() for t in mmp(
+        torch.from_numpy(qs).to(cuda), torch.from_numpy(qlen).to(cuda))], 1)
+    assert fetch.LAUNCHES > n0
+    host = np.array([mmp_search(gi, qs[b, :qlen[b]]) for b in range(n)])
+    assert np.array_equal(got, host)

@@ -1,0 +1,63 @@
+"""The port stands alone: no module of star_tpu_torch, and not chip_smoke.py,
+imports jax or star_tpu; and its entry points run on CUDA unless the caller
+asks for the CPU."""
+import ast
+import os
+
+import pytest
+import torch
+
+from tests.conftest import GOLD, ROOT
+
+
+def _sources():
+    pkg = os.path.join(ROOT, "star_tpu_torch")
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_no_star_tpu():
+    srcs = list(_sources())
+    assert len(srcs) > 20
+    bad = [(os.path.relpath(p, ROOT), m) for p in srcs for m in _imported(p)
+           if m.split(".")[0] in ("jax", "jaxlib", "star_tpu")]
+    assert bad == []
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.ops.pipeline import DeviceAligner
+    from star_tpu_torch.ops.sa_search import DeviceIndex
+    from star_tpu_torch.params import Parameters
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gi = GenomeIndex.load(os.path.join(GOLD, "genome_idx"))
+    P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
+                    "--readFilesIn", "none.fastq"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceAligner(gi, P)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceIndex.build(gi, ql=128)
+    assert DeviceAligner(gi, P, device="cpu").device.type == "cpu"
+
+
+def test_options_outside_the_slice_are_refused(tmp_path):
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
+                    "--readFilesIn", "none.fastq", "--quantMode", "GeneCounts",
+                    "--outFileNamePrefix", str(tmp_path) + "/"])
+    with pytest.raises(SystemExit, match="not yet ported.*quantMode"):
+        align_reads(P, device="cpu")
