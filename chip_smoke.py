@@ -6,18 +6,28 @@
 Runs from the repository root and needs one CUDA card, nvcc and g++.  Phases,
 in order; any failure ends the run with a non-zero exit and no result line:
 
-  1. build   compile every CUDA kernel of ops/csrc/ (one nvcc per source,
-             started together) into star_tpu_torch/_build/;
+  1. build   compile every CUDA source of ops/csrc/ (fetch_rows.cu, whose
+             library holds both kernels, fetch_rows and tile_fetch; one nvcc
+             per source, started together) into star_tpu_torch/_build/;
   2. kernel  each kernel against its plain PyTorch version on the card, at
-             the main path's shapes (exact equality), and timed beside its
-             plain version, one library call and its bandwidth bound;
-  3. golden  alignReads on cuda for the bundled se / pe goldens: SAM (header
-             stripped) and SJ.out.tab byte-identical;
+             262,144 rows of a 128 MiB table, edges included (exact
+             equality), and timed beside its plain version, one library call
+             and its bandwidth bound;
+  3. golden  alignReads on cuda for the bundled se / pe goldens with the
+             device grow forced on every level: SAM (header stripped) and
+             SJ.out.tab byte-identical, grow fetch_rows launches > 0;
   4. full    a chr20-scale genome (40 + 20 Mb, SAi depth 12) and one
              16,384-read batch of 100 bp SE reads aligned on cuda: reads/s,
-             phase split, kernel launches, peak device memory; 1,024 probes
-             held against the host MMP oracle and the first 256 reads'
-             SAM against the per-read host path (--tpuUseDevice 0).
+             phase split, per-level reads / seed records / grow engine, grow
+             iterations and launches, kernel launches, peak device memory;
+             the grow sweep: each level's grow replayed from the batch's
+             dumped inputs on its first n reads, numpy engine against the
+             card (seconds, seed records, LaneStates equal), which places
+             the device-grow gate batch_engine.DEVICE_GROW_MIN_RECORDS;
+             1,024 probes held against the host MMP oracle; the first 256
+             reads' SAM against the per-read host path (--tpuUseDevice 0);
+             and the whole batch aligned again with the numpy grow: SAM and
+             SJ.out.tab byte-identical.
 
 Then one JSON line of kernel measurements, the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}.
@@ -40,6 +50,8 @@ SAI_NBASES = 12                       # bench.py's reference SAi depth
 N_READS = 16384                       # one full tpuBatchSize batch
 N_PROBES = 1024
 N_HOST_READS = 256
+SWEEP = {8: (1024, 2048, 4096, 8192, 16384),   # reads replayed per level
+         512: (32, 128, 512)}
 FETCH_ROWS = 262144                   # rows of one MMP neighbour fetch
 FETCH_TABLE = 128 << 20
 DEVICE = "cuda"
@@ -72,6 +84,16 @@ def strip_header(path):
         return [l for l in f if not l.startswith("@")]
 
 
+def row_bytes(torch, starts, n_rows, idx_bytes, fet, tile):
+    """bytes a row fetch must move: each distinct 1 KiB table tile that a
+    row covers (a row spans its tile and the next) read once, each row
+    written once, each row's index read once"""
+    t = starts // tile
+    n_tiles = int(torch.unique(torch.cat([t, t + 1])).numel())
+    return (min(n_tiles * tile, n_rows * fet) + n_rows * fet
+            + n_rows * idx_bytes), n_tiles
+
+
 def phase_kernel(torch, np, fetch):
     """fetch_rows kernel vs its plain version at the MMP's widest shape"""
     dev = torch.device("cuda")
@@ -94,13 +116,10 @@ def phase_kernel(torch, np, fetch):
     ms = cuda_ms(lambda: fetch.fetch_rows(tab, off))
     plain_ms = cuda_ms(lambda: fetch._fetch_rows_torch(tab, off))
     library_ms = cuda_ms(lambda: tab.unfold(0, 2048, 1024)[off // 1024])
-    # bytes the function must move: each distinct 1 KiB table tile that a
-    # live row covers (a row spans its tile and the next) read once, each
-    # live row written once, every offset read once
-    tile = off[live] // fetch.TILE
-    n_tiles = int(torch.unique(torch.cat([tile, tile + 1])).numel())
-    read_b = min(n_tiles * fetch.TILE, n_live * fetch.FET)
-    bytes_moved = read_b + n_live * fetch.FET + FETCH_ROWS * 8
+    # live rows move data; every offset is read once
+    live_b, n_tiles = row_bytes(torch, off[live], n_live, 0, fetch.FET,
+                                fetch.TILE)
+    bytes_moved = live_b + FETCH_ROWS * 8
     bound_ms = bytes_moved / HBM_BW * 1e3
     log(f"kernel fetch_rows: {FETCH_ROWS} rows ({n_live} live, {n_tiles} "
         f"distinct tiles) of a {FETCH_TABLE >> 20} MiB table: max_abs_err 0, "
@@ -114,32 +133,121 @@ def phase_kernel(torch, np, fetch):
             "bound_by": "bytes", "library_ms": library_ms}
 
 
+def phase_tile_kernel(torch, np, tile_fetch):
+    """tile_fetch kernel vs its plain version: 262,144 positions of a
+    128 MiB table, both table edges included"""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    raw = rng.integers(-128, 128, size=FETCH_TABLE, dtype=np.int8)
+    tab = torch.from_numpy(tile_fetch.pad_table(raw)).to(dev)
+    pos = rng.integers(0, FETCH_TABLE, size=FETCH_ROWS).astype(np.int32)
+    pos[:8] = [0, 1, 1023, 1024, 2047, FETCH_TABLE - 2048, FETCH_TABLE - 1024,
+               FETCH_TABLE - 1]
+    pos = torch.from_numpy(pos).to(dev)
+    fn = tile_fetch.make_tile_fetch(tab, FETCH_ROWS)
+    got = fn(pos)
+    torch.cuda.synchronize()
+    want = tile_fetch._tile_fetch_torch(tab, pos)
+    err = int((got.int() - want.int()).abs().max())
+    del got, want
+    if err != 0:
+        raise AssertionError(f"tile_fetch kernel differs from plain: {err}")
+    ms = cuda_ms(lambda: fn(pos))
+    plain_ms = cuda_ms(lambda: tile_fetch._tile_fetch_torch(tab, pos))
+    library_ms = cuda_ms(lambda: tab.unfold(0, 2048, 1024)[pos // 1024])
+    bytes_moved, n_tiles = row_bytes(torch, pos.long(), FETCH_ROWS, 4,
+                                     tile_fetch.FET, tile_fetch.TILE)
+    bound_ms = bytes_moved / HBM_BW * 1e3
+    log(f"kernel tile_fetch: {FETCH_ROWS} positions ({n_tiles} distinct "
+        f"tiles) of a {FETCH_TABLE >> 20} MiB table: max_abs_err 0, "
+        f"{ms:.4f} ms (plain {plain_ms:.4f}, library {library_ms:.4f}, bound "
+        f"{bound_ms:.4f} ms = {bytes_moved} B at {HBM_BW:.3g} B/s)")
+    return {"name": "tile_fetch", "route": "cuda",
+            "source": "star_tpu_torch/ops/csrc/fetch_rows.cu",
+            "replaces": "star_tpu/ops/pallas_fetch.py:66",
+            "launches": None, "on_main_path": False,
+            "max_abs_err": err, "max_abs_diff": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": library_ms}
+
+
+def levels(be):
+    """{w_max: (runs, runs with the grow on the card)} of the escalation
+    levels run since LEVEL_STATS was cleared"""
+    ls = be.LEVEL_STATS
+    return {w: (ls[w, "runs"], ls[w, "device"]) for w in sorted({w for w, _
+                                                               in ls})}
+
+
+def grow_report(ds, be, pipeline, label):
+    ls = be.LEVEL_STATS
+    for w, (runs, dev) in levels(be).items():
+        log(f"{label}: level W{w}: {ls[w, 'reads']} reads, "
+            f"{ls[w, 'records']} seed records, grow on the card in {dev} "
+            f"of {runs} runs")
+    gs = ds.GROW_STATS
+    t = pipeline.TIMERS
+    log(f"{label}: grow calls {gs['calls']}, iterations {gs['iterations']}, "
+        f"steps {gs['steps']}, fetch_rows launches {gs['fetch_launches']}; "
+        f"dev_upload {t['dev_upload']:.3f} s, dev_grow {t['dev_grow']:.3f} s, "
+        f"dev_download {t['dev_download']:.3f} s, dev_order "
+        f"{t['dev_order']:.3f} s; FB_STATS "
+        f"{dict(sorted(be.FB_STATS.items()))}")
+
+
+def reset_counts(ds, be, pipeline):
+    be.LEVEL_STATS.clear()
+    be.FB_STATS.clear()
+    ds.GROW_STATS.clear()
+    pipeline.TIMERS.clear()
+
+
 def phase_golden(fetch):
     from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    from star_tpu_torch.ops import pipeline
     from star_tpu_torch.params import Parameters
     from star_tpu_torch.run import align_reads
     gi = GenomeIndex.load(os.path.join(GOLD, "genome_idx"))
-    for case, reads in (("se", ["reads_se.fastq"]),
-                        ("pe", ["reads_pe_1.fastq", "reads_pe_2.fastq"])):
-        n0 = fetch.LAUNCHES
-        out = os.path.join(WORK, f"golden_{case}") + "/"
-        P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
-                        "--readFilesIn", *[os.path.join(DATA, r) for r in reads],
-                        "--outFileNamePrefix", out, "--outSAMunmapped", "Within"])
-        t0 = time.time()
-        align_reads(P, gi=gi, device=DEVICE)
-        if strip_header(out + "Aligned.out.sam") != \
-                strip_header(os.path.join(GOLD, case, "Aligned.out.sam")):
-            raise AssertionError(f"golden {case}: SAM differs")
-        with open(out + "SJ.out.tab") as a, \
-                open(os.path.join(GOLD, case, "SJ.out.tab")) as b:
-            if a.read() != b.read():
-                raise AssertionError(f"golden {case}: SJ.out.tab differs")
-        if fetch.LAUNCHES == n0:
-            raise AssertionError(f"golden {case}: fetch_rows never launched")
-        log(f"golden {case}: SAM and SJ.out.tab identical, "
-            f"{fetch.LAUNCHES - n0} fetch_rows launches, "
-            f"{time.time() - t0:.2f} s")
+    gate = be.DEVICE_GROW_MIN_RECORDS
+    be.DEVICE_GROW_MIN_RECORDS = {s: 0 for _, s, _ in be.LEVELS}  # every level
+    pipeline.TIMING = True
+    try:
+        for case, reads in (("se", ["reads_se.fastq"]),
+                            ("pe", ["reads_pe_1.fastq", "reads_pe_2.fastq"])):
+            reset_counts(ds, be, pipeline)
+            n0 = fetch.LAUNCHES
+            out = os.path.join(WORK, f"golden_{case}") + "/"
+            P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
+                            "--readFilesIn",
+                            *[os.path.join(DATA, r) for r in reads],
+                            "--outFileNamePrefix", out,
+                            "--outSAMunmapped", "Within"])
+            t0 = time.time()
+            align_reads(P, gi=gi, device=DEVICE)
+            if strip_header(out + "Aligned.out.sam") != \
+                    strip_header(os.path.join(GOLD, case, "Aligned.out.sam")):
+                raise AssertionError(f"golden {case}: SAM differs")
+            with open(out + "SJ.out.tab") as a, \
+                    open(os.path.join(GOLD, case, "SJ.out.tab")) as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"golden {case}: SJ.out.tab differs")
+            lv = levels(be)
+            if not lv or any(dev != runs for runs, dev in lv.values()):
+                raise AssertionError(f"golden {case}: a level's grow did not "
+                                     "run on the card")
+            if ds.GROW_STATS["fetch_launches"] == 0:
+                raise AssertionError(f"golden {case}: the grow launched no "
+                                     "fetch_rows")
+            log(f"golden {case}: SAM and SJ.out.tab identical, "
+                f"{fetch.LAUNCHES - n0} fetch_rows launches (grow "
+                f"{ds.GROW_STATS['fetch_launches']}), "
+                f"{time.time() - t0:.2f} s")
+            grow_report(ds, be, pipeline, f"golden {case}")
+    finally:
+        be.DEVICE_GROW_MIN_RECORDS = gate
+        pipeline.TIMING = False
 
 
 def start_data(data):
@@ -152,12 +260,130 @@ def start_data(data):
          "--n-reads", str(N_READS)], cwd=ROOT, stdout=subprocess.DEVNULL)
 
 
+def load_dump(gi, P, dump):
+    import pickle
+    from star_tpu_torch.ops import batch_engine as be
+    with open(dump, "rb") as f:
+        d = pickle.load(f)
+    d["recs"] = be.expand_hits(gi, P, d["seeds"], d["lread"], len(d["lread"]))
+    return d
+
+
+def grow_sweep(np, gi, P, d):
+    """each level's grow replayed on the first n reads that reach it, numpy
+    engine against the card (LaneStates and fallbacks equal).  Returns
+    {w_max: [(reads, seed records, numpy s, card s), ...]}; the card's time
+    is the best of two calls"""
+    import copy
+    import torch
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    B = len(d["lread"])
+    # the reads that reach the W512 level: those level 0 leaves in fallback
+    fb0, _ = be._stitch_level(gi, P, d["recs"], d["lread"], d["fwd"], d["rc"],
+                              d["read_len2"], d["nmm_max"], be.W_MAX,
+                              be.S_MAX, be.CHAIN_CAP, lazy=True,
+                              device=DEVICE)
+    reach = {be.W_MAX: np.arange(B), 512: np.nonzero(fb0)[0]}
+    out = {}
+    for w_max, s_max, chain_cap in be.LEVELS:
+        rows = out[w_max] = []
+        for n in SWEEP[w_max]:
+            idx = reach[w_max][:n]
+            mask = np.zeros(B, bool)
+            mask[idx] = True
+            new_index = np.zeros(B, np.int64)
+            new_index[idx] = np.arange(len(idx))
+            sub = be._slice_seed_recs(d["recs"], mask, new_index)
+            ws, st, n_rec, RS, Lpad = be.level_state(
+                gi, P, sub, len(idx), d["fwd"][idx], d["rc"][idx], w_max,
+                s_max)
+            nmm = d["nmm_max"][idx]
+            st_np = copy.deepcopy(st)
+            t0 = time.time()
+            want = be.grow_chains(gi, P, gi.G.view(np.uint8), RS, st_np, ws,
+                                  nmm, Lpad, chain_cap=chain_cap)
+            t_np = time.time() - t0
+            t_dev = []
+            for _ in range(2):
+                st_d = copy.deepcopy(st)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                got = ds.grow_chains_device(gi, P, st_d, ws, RS, nmm, Lpad,
+                                            s_max, chain_cap, DEVICE)
+                torch.cuda.synchronize()
+                t_dev.append(time.time() - t0)
+                if not np.array_equal(st_d.fallback, st_np.fallback):
+                    raise AssertionError(f"grow sweep W{w_max} n={n}: "
+                                         "fallback differs")
+                for k in be._lane_fields():
+                    if not np.array_equal(getattr(got, k), getattr(want, k)):
+                        raise AssertionError(f"grow sweep W{w_max} n={n}: "
+                                             f"card lanes differ in {k}")
+            rows.append((len(idx), n_rec, t_np, min(t_dev)))
+            log(f"full: grow sweep W{w_max}: {len(idx)} reads, {n_rec} seed "
+                f"records, {len(want.b)} chains: numpy {t_np:.4f} s, card "
+                f"{min(t_dev):.4f} s (calls {t_dev[0]:.4f}, {t_dev[1]:.4f}); "
+                "LaneStates equal")
+            if len(idx) < n:
+                break
+        gate = be.DEVICE_GROW_MIN_RECORDS[s_max]
+        lose = [r for _, r, tn, tc in rows if tc > tn]
+        win = [r for _, r, tn, tc in rows if tc <= tn]
+        log(f"full: grow sweep W{w_max}: the card lost at "
+            f"{max(lose) if lose else 'no point'} and won from "
+            f"{min(win) if win else 'no point'} seed records; gate {gate}")
+    return out
+
+
+def replay_grow_fetches(torch, gi, P, d, fetch, want_launches):
+    """the batch's stitch again from its dumped inputs, with every fetch_rows
+    call of the grow timed by CUDA events and its bound computed from its
+    rows: the grow's share of the fetch_rows kernel (the seed loop's calls
+    do not pass through fetch.fetch_rows' module attribute)"""
+    from star_tpu_torch.ops import batch_engine as be
+    calls = []
+    real = fetch.fetch_rows
+
+    def timed(table, off):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        rows = real(table, off)
+        b.record()
+        live = off[off >= 0]
+        nb, _ = row_bytes(torch, live, live.numel(), 0, fetch.FET, fetch.TILE)
+        calls.append((a, b, nb + off.numel() * 8, off.numel()))
+        return rows
+
+    fetch.fetch_rows = timed
+    try:
+        be.stitch_batch(gi, P, d["seeds"], d["fwd"], d["rc"], d["lread"],
+                        d["read_len2"], d["nmm_max"], lazy=True, device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        fetch.fetch_rows = real
+    if len(calls) != want_launches:
+        raise AssertionError(f"grow replay: {len(calls)} fetch_rows calls, "
+                             f"the main path made {want_launches}")
+    kern_ms = sum(a.elapsed_time(b) for a, b, _, _ in calls)
+    nbytes = sum(c[2] for c in calls)
+    rows = sum(c[3] for c in calls)
+    bound_ms = nbytes / HBM_BW * 1e3
+    log(f"full: the grow's fetch_rows calls (replayed): {len(calls)} "
+        f"launches, {rows} rows, kernel {kern_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({nbytes} B at {HBM_BW:.3g} B/s)")
+    return kern_ms, bound_ms
+
+
 def phase_full(torch, np, fetch, data_proc, data):
     from star_tpu_torch.align.seed import mmp_search
     from star_tpu_torch.constants import encode_seq
     from star_tpu_torch.genome.index import GenomeIndex
     from star_tpu_torch.io.fastq import read_pairs
-    from star_tpu_torch.ops import pipeline
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    from star_tpu_torch.ops import pipeline, tile_fetch
     from star_tpu_torch.ops.sa_search import make_mmp_fn
     from star_tpu_torch.params import Parameters
     from star_tpu_torch.run import align_reads
@@ -179,34 +405,67 @@ def phase_full(torch, np, fetch, data_proc, data):
 
     reads = os.path.join(data, "reads_se.fastq")
     out = os.path.join(WORK, "full") + "/"
-    P = Parameters(["--genomeDir", idx, "--readFilesIn", reads,
-                    "--outFileNamePrefix", out, "--outSAMunmapped", "Within",
-                    "--readMapNumber", str(N_READS),
-                    "--tpuBatchSize", str(N_READS)])
+    dump = os.path.join(WORK, "dump")
+    argv = ["--genomeDir", idx, "--readFilesIn", reads,
+            "--outFileNamePrefix", out, "--outSAMunmapped", "Within",
+            "--readMapNumber", str(N_READS), "--tpuBatchSize", str(N_READS)]
+    P = Parameters(argv)
+    if os.path.isdir(dump):
+        for f in os.listdir(dump):
+            os.remove(os.path.join(dump, f))
+    os.environ["STAR_TPU_DUMP_STITCH"] = dump
     pipeline.TIMING = True
-    pipeline.TIMERS.clear()
+    reset_counts(ds, be, pipeline)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fetch.LAUNCHES = 0                           # counts of the main path
+    tile_fetch.LAUNCHES = 0
     t0 = time.time()
-    stats = align_reads(P, gi=gi, device=DEVICE)
-    torch.cuda.synchronize()
+    try:
+        stats = align_reads(P, gi=gi, device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["STAR_TPU_DUMP_STITCH"]
     wall = time.time() - t0
-    launches = fetch.LAUNCHES
+    launches = {"fetch_rows": fetch.LAUNCHES,
+                "tile_fetch": tile_fetch.LAUNCHES}
     pipeline.TIMING = False
     peak = torch.cuda.max_memory_allocated()
-    if launches == 0:
+    grow_launches = ds.GROW_STATS["fetch_launches"]
+    if launches["fetch_rows"] == 0:
         raise AssertionError("full: fetch_rows never launched")
     if stats.read_n != N_READS:
         raise AssertionError(f"full: {stats.read_n} reads aligned, "
                              f"expected {N_READS}")
     log(f"full: {N_READS} reads in {wall:.2f} s = {N_READS / wall:.1f} "
-        f"reads/s (index upload included); fetch_rows launches {launches}; "
+        f"reads/s (index upload included); fetch_rows launches "
+        f"{launches['fetch_rows']} (seed loop "
+        f"{launches['fetch_rows'] - grow_launches}, grow {grow_launches}); "
         f"peak device memory {peak} B")
     log(f"full: phases {pipeline.timing_report()}")
+    grow_report(ds, be, pipeline, "full")
+    lv = levels(be)
+    gate = {w: be.DEVICE_GROW_MIN_RECORDS[s] for w, s, _ in be.LEVELS}
+    for w, (runs, dev) in lv.items():
+        want = runs if be.LEVEL_STATS[w, "records"] >= gate[w] else 0
+        if dev != want:
+            raise AssertionError(f"full: level W{w} grew on the card in {dev} "
+                                 f"of {runs} runs, the gate ({gate[w]} seed "
+                                 f"records) says {want}")
+    if not any(dev for _, dev in lv.values()):
+        raise AssertionError("full: no level grew on the card")
+    for f in ("Aligned.out.sam", "SJ.out.tab"):
+        os.replace(out + f, out + f + ".device")
+
+    d = load_dump(gi, P, os.path.join(dump, sorted(os.listdir(dump))[0]))
+    replay = {"sweep": grow_sweep(np, gi, P, d)}
+    replay["grow_fetch_ms"], replay["grow_fetch_bound_ms"] = \
+        replay_grow_fetches(torch, gi, P, d, fetch, grow_launches)
+    del d
 
     # ---- 1,024 probes of the batch's reads vs the host oracle
-    di = gi._device_cache[next(iter(gi._device_cache))]
+    di = gi._device_cache[next(k for k in gi._device_cache
+                               if k[0] != "stitch")]
     mmp = make_mmp_fn(di)
     rng = np.random.default_rng(5)
     recs = [(name, seqs[0]) for name, seqs, _, _ in
@@ -243,7 +502,7 @@ def phase_full(torch, np, fetch, data_proc, data):
     t0 = time.time()
     align_reads(P2, gi=gi)
     names = {n for n, _ in recs[:N_HOST_READS]}
-    dev_lines = [l for l in strip_header(out + "Aligned.out.sam")
+    dev_lines = [l for l in strip_header(out + "Aligned.out.sam.device")
                  if l.split("\t", 1)[0] in names]
     host_lines = strip_header(out_h + "Aligned.out.sam")
     if dev_lines != host_lines or not host_lines:
@@ -251,7 +510,31 @@ def phase_full(torch, np, fetch, data_proc, data):
                              "from the host path")
     log(f"full: first {N_HOST_READS} reads' SAM ({len(host_lines)} lines) "
         f"identical to --tpuUseDevice 0 ({time.time() - t0:.1f} s)")
-    return launches
+
+    # ---- the whole batch again with the numpy grow on every level
+    os.environ["STAR_TPU_DEVICE_STITCH"] = "0"
+    pipeline.TIMING = True
+    pipeline.TIMERS.clear()
+    t0 = time.time()
+    try:
+        align_reads(Parameters(argv), gi=gi, device=DEVICE)
+    finally:
+        del os.environ["STAR_TPU_DEVICE_STITCH"]
+        pipeline.TIMING = False
+    wall_np = time.time() - t0
+    log("full: numpy-grow run: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in sorted(pipeline.TIMERS.items())
+        if k.startswith(("grow_", "stitch_level_"))))
+    for f in ("Aligned.out.sam", "SJ.out.tab"):
+        with open(out + f, "rb") as a, open(out + f + ".device", "rb") as b_:
+            if a.read() != b_.read():
+                raise AssertionError(f"full: {f} of the device grow differs "
+                                     "from the numpy grow")
+    log(f"full: SAM and SJ.out.tab byte-identical to the numpy-grow run of "
+        f"the same batch (device grow {wall:.2f} s = "
+        f"{N_READS / wall:.1f} reads/s, numpy grow {wall_np:.2f} s = "
+        f"{N_READS / wall_np:.1f} reads/s)")
+    return launches, replay
 
 
 def main():
@@ -261,7 +544,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     import numpy as np
-    from star_tpu_torch.ops import _build, fetch
+    from star_tpu_torch.ops import _build, fetch, tile_fetch
 
     if SXM_NAME not in torch.cuda.get_device_name(0):
         raise RuntimeError(f"bounds assume an {SXM_NAME} (SXM) card, found "
@@ -272,22 +555,29 @@ def main():
     data_proc = start_data(data)
     try:
         t0 = time.time()
-        _build.build_all(["fetch_rows"])
-        log(f"build: fetch_rows.cu in {time.time() - t0:.1f} s")
-        for line in _build.BUILD_LOG.get("fetch_rows", "").splitlines():
-            if "registers" in line or "spill" in line:
-                log("build: " + line.strip())
+        sources = ["fetch_rows"]
+        _build.build_all(sources)
+        log(f"build: {', '.join(k + '.cu' for k in sources)} in "
+            f"{time.time() - t0:.1f} s")
+        for k in sources:
+            for line in _build.BUILD_LOG.get(k, "").splitlines():
+                if "Compiling entry" in line or "registers" in line \
+                        or "spill" in line:
+                    log(f"build: {k}: " + line.strip())
 
-        kern = phase_kernel(torch, np, fetch)
+        kern = [phase_kernel(torch, np, fetch),
+                phase_tile_kernel(torch, np, tile_fetch)]
         phase_golden(fetch)
-        kern["launches"] = phase_full(torch, np, fetch, data_proc, data)
+        launches, _ = phase_full(torch, np, fetch, data_proc, data)
+        for k in kern:
+            k["launches"] = launches[k["name"]]
     finally:
         if data_proc is not None and data_proc.poll() is None:
             data_proc.kill()
             data_proc.wait()
 
     log(f"total: {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kern]}))
+    print(json.dumps({"kernels": kern}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True)

@@ -31,6 +31,29 @@ from ..constants import MARK_FRAG_SPACER_BASE, MAX_N_EXONS, SCORE_MATCH
 W_MAX = 8       # windows per read (live slots, incl. dead-by-merge)
 S_MAX = 16      # seeds per window
 
+import os as _os
+
+# seed records from which a level's grow runs on the device engine, keyed
+# by the level's s_max.  Where the card's grow overtook the numpy grow in
+# chip_smoke.py's grow sweep on an H100 (PERF.md): level 0 (W8, 16 steps)
+# lost at 71,557 records and won at 143,268; level 1 (W512, 50 steps) won
+# from its smallest point, 19,017, and its fixed cost of ~0.4 s against
+# numpy's ~26 us per record puts the tie near 15,000.
+DEVICE_GROW_MIN_RECORDS = {S_MAX: 100_000, 50: 16_000}
+
+
+def _use_device_stitch(gi, s_max: int, n_records: int) -> bool:
+    """gate for the device grow engine (ops/device_stitch.py): int32
+    positions require a <2^30-base genome (bigger genomes keep the numpy
+    engine); mask words cover s_max <= 50; levels with fewer seed records
+    than DEVICE_GROW_MIN_RECORDS[s_max] stay on the numpy engine.
+    STAR_TPU_DEVICE_STITCH=0 turns the device grow off."""
+    if _os.environ.get("STAR_TPU_DEVICE_STITCH", "1") == "0":
+        return False
+    if int(gi.n_genome) >= (1 << 30) or s_max > 50:
+        return False
+    return n_records >= DEVICE_GROW_MIN_RECORDS[s_max]
+
 
 # fallback-cause counters (diagnostics; STAR_TPU_TIMING reports them)
 import collections as _collections
@@ -1960,20 +1983,27 @@ def fast_path_config_ok(gi, P) -> bool:
 
 
 def _stitch_level(gi, P, recs, lread, read_fwd_u8, read_rc_u8, read_len2,
-                  nmm_max_read, w_max, s_max, chain_cap, lazy=False):
+                  nmm_max_read, w_max, s_max, chain_cap, lazy=False,
+                  device=None):
     """run the full windows->assign->grow->finalize->assemble pipeline on one
     (sub-)batch at the given envelope.  Returns (fallback[B], results)."""
     from .pipeline import _tick
     with _tick(f"stitch_level_W{w_max}"):
         return _stitch_level_inner(gi, P, recs, lread, read_fwd_u8,
                                    read_rc_u8, read_len2, nmm_max_read,
-                                   w_max, s_max, chain_cap, lazy=lazy)
+                                   w_max, s_max, chain_cap, lazy=lazy,
+                                   device=device)
 
 
-def _stitch_level_inner(gi, P, recs, lread, read_fwd_u8, read_rc_u8,
-                        read_len2, nmm_max_read, w_max, s_max, chain_cap,
-                        lazy=False):
-    B = len(lread)
+# per escalation level w: (w, "runs"), (w, "reads"), (w, "records": the
+# owned seed records the grow consumes) and (w, "device"): the runs whose
+# grow ran on the device engine
+LEVEL_STATS = _collections.Counter()
+
+
+def level_state(gi, P, recs, B, read_fwd_u8, read_rc_u8, w_max, s_max):
+    """windows and WA pair tables of one escalation level: the grow's
+    inputs.  Returns (ws, st, n_records, RS, Lpad)."""
     wbits = P.winBinNbits
     n_bins = (int(gi.n_genome) >> wbits) + 2
 
@@ -1995,15 +2025,41 @@ def _stitch_level_inner(gi, P, recs, lread, read_fwd_u8, read_rc_u8,
     recs_k = {k: v[keep] for k, v in recs.items()}
     recs_k["own"] = own[keep]
     st = assign_pairs(gi, P, ws, recs_k, s_max)
-    G = gi.G if gi.G.dtype == np.uint8 else gi.G.view(np.uint8)
     RS = np.concatenate([read_fwd_u8, read_rc_u8], axis=0)
     Lpad = read_fwd_u8.shape[1] + 2
-    lanes = grow_chains(gi, P, G, RS, st, ws, nmm_max_read, Lpad,
-                        chain_cap=chain_cap)
-    accept = finalize_lanes(gi, P, G, RS, lanes, ws, nmm_max_read,
-                            read_len2, lread, Lpad)
-    results = assemble(gi, P, lanes, accept, ws, st.wa_n_dense, st.fallback,
-                       lread, lazy=lazy)
+    return ws, st, len(recs_k["read"]), RS, Lpad
+
+
+def _stitch_level_inner(gi, P, recs, lread, read_fwd_u8, read_rc_u8,
+                        read_len2, nmm_max_read, w_max, s_max, chain_cap,
+                        lazy=False, device=None):
+    from .pipeline import _tick
+    B = len(lread)
+    with _tick(f"windows_W{w_max}"):
+        ws, st, n_rec, RS, Lpad = level_state(gi, P, recs, B, read_fwd_u8,
+                                              read_rc_u8, w_max, s_max)
+    G = gi.G if gi.G.dtype == np.uint8 else gi.G.view(np.uint8)
+    on_device = _use_device_stitch(gi, s_max, n_rec)
+    for k, v in (("runs", 1), ("reads", B), ("records", n_rec),
+                 ("device", on_device)):
+        LEVEL_STATS[w_max, k] += int(v)
+    if on_device:
+        from .device_stitch import grow_chains_device
+        from .fetch import resolve_device
+        with _tick(f"grow_dev_W{w_max}"):
+            lanes = grow_chains_device(gi, P, st, ws, RS, nmm_max_read, Lpad,
+                                       s_max, chain_cap,
+                                       resolve_device(device))
+    else:
+        with _tick(f"grow_host_W{w_max}"):
+            lanes = grow_chains(gi, P, G, RS, st, ws, nmm_max_read, Lpad,
+                                chain_cap=chain_cap)
+    with _tick(f"finalize_W{w_max}"):
+        accept = finalize_lanes(gi, P, G, RS, lanes, ws, nmm_max_read,
+                                read_len2, lread, Lpad)
+    with _tick(f"assemble_W{w_max}"):
+        results = assemble(gi, P, lanes, accept, ws, st.wa_n_dense,
+                           st.fallback, lread, lazy=lazy)
     return st.fallback, results
 
 
@@ -2031,10 +2087,12 @@ def fast_finish_config_ok(P) -> bool:
 
 
 def stitch_batch(gi, P, seeds: SeedArrays, read_fwd_u8, read_rc_u8,
-                 lread, read_len2, nmm_max_read, lazy=False):
+                 lread, read_len2, nmm_max_read, lazy=False, device=None):
     """full batched post-seeding pipeline with envelope escalation.
     read_fwd_u8/read_rc_u8: [B, Lmax] uint8, PAD_BASE-padded.
     read_len2: [B, 2] per-mate readLength.  nmm_max_read: [B].
+    device: the torch device of the grow engine (cuda unless named; see
+    _use_device_stitch for which levels take it).
     Returns (fallback[B] bool, {read: (all_win_tr, maxScoreMate)})."""
     B = len(lread)
     recs = expand_hits(gi, P, seeds, lread, B)
@@ -2050,7 +2108,8 @@ def stitch_batch(gi, P, seeds: SeedArrays, read_fwd_u8, read_rc_u8,
             sub = recs
             fb_s, res_s = _stitch_level(
                 gi, P, sub, lread, read_fwd_u8, read_rc_u8, read_len2,
-                nmm_max_read, w_max, s_max, chain_cap, lazy=lazy)
+                nmm_max_read, w_max, s_max, chain_cap, lazy=lazy,
+                device=device)
         else:
             new_index = np.zeros(B, np.int64)
             new_index[idx] = np.arange(len(idx))
@@ -2058,7 +2117,7 @@ def stitch_batch(gi, P, seeds: SeedArrays, read_fwd_u8, read_rc_u8,
             fb_s, res_s = _stitch_level(
                 gi, P, sub, lread[idx], read_fwd_u8[idx], read_rc_u8[idx],
                 read_len2[idx], nmm_max_read[idx], w_max, s_max, chain_cap,
-                lazy=lazy)
+                lazy=lazy, device=device)
         done_s = ~fb_s
         done_idx = idx[done_s]
         fallback[done_idx] = False

@@ -30,7 +30,13 @@ from .sa_search import DeviceIndex, make_mmp_fn
 
 MAXP = 64  # probes per chain cap (matches the round-1 64-round cap)
 
-# per-phase wall-clock accumulators, enabled with STAR_TPU_TIMING=1
+# per-phase wall-clock accumulators, enabled with STAR_TPU_TIMING=1.
+# Keys: prepare, seed_loop, replay, stitch_batch, finish; per escalation
+# level stitch_level_W<w> with its parts windows_W<w>, the grow (grow_dev_W<w>
+# on the device, else grow_host_W<w>), finalize_W<w> and assemble_W<w>; the
+# device grows' parts dev_upload, dev_grow, dev_download and dev_order (the
+# host's DFS ordering of the downloaded chains).
+# STAR_TPU_DUMP_STITCH=<dir> pickles each batch's stitch inputs there.
 import collections as _collections
 import os as _os
 import time as _time
@@ -203,10 +209,20 @@ class DeviceAligner:
             rcv = np.take_along_axis(read_mat, src, axis=1)
             rc = np.where(k[None, :] < lread[:, None],
                           np.where(rcv < 4, 3 - rcv, rcv), -1).astype(np.uint8)
+            dump_dir = _os.environ.get("STAR_TPU_DUMP_STITCH")
+            if dump_dir:
+                _os.makedirs(dump_dir, exist_ok=True)
+                import pickle
+                nb = len(_os.listdir(dump_dir))
+                with open(f"{dump_dir}/batch_{nb:04d}.pkl", "wb") as f:
+                    pickle.dump(dict(seeds=seed_flat, fwd=fwd, rc=rc,
+                                     lread=lread, read_len2=read_len2,
+                                     nmm_max=nmm_max), f)
             with _tick("stitch_batch"):
                 fb, results = be.stitch_batch(self.gi, P, seed_flat, fwd, rc,
                                               lread, read_len2, nmm_max,
-                                              lazy=fast_fin)
+                                              lazy=fast_fin,
+                                              device=self.device)
 
         with _tick("finish"):
             outs = []

@@ -1,6 +1,7 @@
 """Tests of star_tpu_torch that need an NVIDIA GPU: the hand-written CUDA
-kernels against their plain PyTorch versions, and the MMP search on the card
-against the host oracle.  They skip where no card is present.  This file
+kernels against their plain PyTorch versions, the MMP search on the card
+against the host oracle, and the device grow on the card against the numpy
+grow.  They skip where no card is present.  This file
 imports neither jax nor star_tpu, so on a machine with a card and no jax it
 runs as
 
@@ -80,3 +81,75 @@ def test_mmp_on_card_matches_host(cuda):
     assert fetch.LAUNCHES > n0
     host = np.array([mmp_search(gi, qs[b, :qlen[b]]) for b in range(n)])
     assert np.array_equal(got, host)
+
+
+@pytest.mark.cuda
+def test_tile_fetch_kernel_matches_plain(cuda):
+    from star_tpu_torch.ops import tile_fetch
+    rng = np.random.default_rng(11)
+    n_raw, batch = 3_000_001, 65_536
+    raw = rng.integers(-128, 128, size=n_raw, dtype=np.int8)
+    tab = torch.from_numpy(tile_fetch.pad_table(raw)).to(cuda)
+    pos = rng.integers(0, n_raw, size=batch).astype(np.int32)
+    pos[:6] = [0, 1023, 1024, n_raw - 1, (n_raw // 1024) * 1024, n_raw - 2048]
+    pos = torch.from_numpy(pos).to(cuda)
+    fn = tile_fetch.make_tile_fetch(tab, batch)
+    n0 = tile_fetch.LAUNCHES
+    got = fn(pos)
+    torch.cuda.synchronize()
+    assert tile_fetch.LAUNCHES == n0 + 1
+    assert torch.equal(got, tile_fetch._tile_fetch_torch(tab, pos))
+    with pytest.raises(ValueError):
+        fn(pos.long())                              # int64 positions
+    with pytest.raises(ValueError):
+        tile_fetch.make_tile_fetch(tab, batch + 8)  # not a multiple of blk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,reads", [
+    ("se", ["reads_se.fastq"]),
+    ("pe", ["reads_pe_1.fastq", "reads_pe_2.fastq"])])
+def test_device_grow_on_card_matches_numpy(cuda, tmp_path, monkeypatch, case,
+                                           reads):
+    """the grow on the card (through the fetch_rows kernel) gives the numpy engine's LaneStates on every level, and the goldens"""
+    import copy
+    from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    monkeypatch.delenv("STAR_TPU_DEVICE_STITCH", raising=False)
+    monkeypatch.setattr(be, "DEVICE_GROW_MIN_RECORDS",
+                        {s_max: 0 for _, s_max, _ in be.LEVELS})
+    real = ds.grow_chains_device
+    grown = []
+
+    def spy(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device):
+        st_np = copy.deepcopy(st)
+        want = be.grow_chains(gi, P, gi.G.view(np.uint8), RS, st_np, ws, nmm,
+                              Lpad, chain_cap=chain_cap)
+        n0 = fetch.LAUNCHES
+        got = real(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device)
+        assert device.type == "cuda" and fetch.LAUNCHES > n0
+        assert np.array_equal(st.fallback, st_np.fallback)
+        for k in be._lane_fields():
+            assert np.array_equal(getattr(got, k), getattr(want, k)), k
+        grown.append(len(want.b))
+        return got
+
+    monkeypatch.setattr(ds, "grow_chains_device", spy)
+    gi = GenomeIndex.load(os.path.join(GOLD, "genome_idx"))
+    prefix = str(tmp_path) + "/"
+    P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
+                    "--readFilesIn",
+                    *[os.path.join(ROOT, "tests", "data", "small", r)
+                      for r in reads],
+                    "--outFileNamePrefix", prefix, "--outSAMunmapped", "Within"])
+    align_reads(P, gi=gi, device=cuda)
+    assert len(grown) == 2 and min(grown) > 0       # both levels grew chains
+
+    def body(path):
+        with open(path) as f:
+            return [l for l in f if not l.startswith("@")]
+    assert body(prefix + "Aligned.out.sam") == \
+        body(os.path.join(GOLD, case, "Aligned.out.sam"))

@@ -61,3 +61,15 @@ def test_options_outside_the_slice_are_refused(tmp_path):
                     "--outFileNamePrefix", str(tmp_path) + "/"])
     with pytest.raises(SystemExit, match="not yet ported.*quantMode"):
         align_reads(P, device="cpu")
+
+
+def test_kernel_modules_build_nothing_at_import():
+    """the modules with CUDA kernels import on a machine without nvcc and
+    without a card; their kernels are built only at the first CUDA launch"""
+    srcs = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {"star_tpu_torch/ops/device_stitch.py",
+            "star_tpu_torch/ops/tile_fetch.py",
+            "star_tpu_torch/ops/fetch.py"} <= srcs
+    from star_tpu_torch.ops import device_stitch, fetch, tile_fetch
+    assert fetch._LIB is None and tile_fetch._LIB is None
+    assert device_stitch.fetch is fetch

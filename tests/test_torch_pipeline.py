@@ -20,6 +20,7 @@ from star_tpu_torch.params import Parameters
 from star_tpu_torch.run import align_reads
 from tests.conftest import DATA, GOLD
 from tests.test_torch_mmp import port_index
+from tests.test_torch_stitch import one_torch_thread  # noqa: F401
 
 READS = {"se": ["reads_se.fastq"],
          "pe": ["reads_pe_1.fastq", "reads_pe_2.fastq"]}

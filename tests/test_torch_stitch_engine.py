@@ -1,0 +1,152 @@
+"""The port's device grow engine (star_tpu_torch/ops/device_stitch.py) on the
+CPU, beyond the goldens of test_torch_stitch.py: a 2x150 PE set whose
+genome regions need two fetch rows (equal to the numpy grow on every level),
+the fetch region's column mapping at every span, the iteration cap's
+overflow 2, and capacity overflows that retry and split without changing a
+byte, or raise once one read's chains exceed the hard caps."""
+import copy
+import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from star_tpu_torch.genome.index import GenomeIndex
+from star_tpu_torch.ops import batch_engine as be
+from star_tpu_torch.ops import device_stitch as ds
+from star_tpu_torch.ops import fetch
+from star_tpu_torch.params import Parameters
+from star_tpu_torch.run import align_reads
+from tests.conftest import GOLD, ROOT
+from tests.test_torch_stitch import (  # noqa: F401  (fixtures)
+    _align_golden, _body, force_device_grow, one_torch_thread, spy_grow)
+
+
+def test_device_grow_2x150_pe_spans_two_fetch_rows(tmp_path, monkeypatch,
+                                                  force_device_grow):
+    """2x150 PE: Lpad 303, so a chunk's genome regions span 1,172 bytes, more
+    than one 2 KiB fetch row holds from an arbitrary alignment (1,025)"""
+    data = tmp_path / "data"
+    subprocess.run([sys.executable,
+                    os.path.join(ROOT, "tools", "make_test_data.py"),
+                    "--out", str(data), "--read-len", "150", "--seed", "5",
+                    "--n-reads", "120"], check=True, stdout=subprocess.DEVNULL)
+    gi = GenomeIndex.generate([str(data / "genome.fa")], sa_index_nbases=7)
+    gi.save(str(tmp_path / "idx"))
+    seen = spy_grow(monkeypatch)
+    P = Parameters(["--genomeDir", str(tmp_path / "idx"), "--readFilesIn",
+                    str(data / "reads_pe_1.fastq"),
+                    str(data / "reads_pe_2.fastq"),
+                    "--outFileNamePrefix", str(tmp_path) + "/"])
+    stats = align_reads(P, gi=gi, device="cpu")
+    assert stats.read_n == 60
+    assert seen and seen[0]["lanes"] > 1000
+    Lpad = seen[0]["Lpad"]
+    assert Lpad == 303 and ds.region_spans(Lpad)[1] > fetch.TILE + 1
+
+
+@pytest.mark.parametrize("span", [1, 1024, 1025, 1126, 1172, 2100, 4000])
+def test_fetch_region_maps_every_column(span):
+    rng = np.random.default_rng(span)
+    raw = rng.integers(0, 6, size=20_000).astype(np.int8)
+    tabf = torch.from_numpy(ds._prep_table(raw))
+    full = np.concatenate([np.zeros(ds.FRONT_PAD, np.int8), raw])
+    off = rng.integers(-ds.FRONT_PAD, len(raw) - span, size=300)
+    off[:3] = [-ds.FRONT_PAD, 0, len(raw) - span]
+    got = ds._fetch_region(tabf, torch.from_numpy(off).int(), span).numpy()
+    want = np.stack([full[o + ds.FRONT_PAD:o + ds.FRONT_PAD + span]
+                     for o in off]).view(np.uint8)
+    assert got.shape == (len(off), span) and np.array_equal(got, want)
+    # junk offsets far outside the table clamp instead of failing
+    junk = torch.tensor([-10**6, 10**7], dtype=torch.int32)
+    assert ds._fetch_region(tabf, junk, span).shape == (2, span)
+
+
+@pytest.fixture(scope="module")
+def se_level0(tmp_path_factory):
+    """the se golden's level-0 grow inputs, from its dumped stitch inputs"""
+    tmp = tmp_path_factory.mktemp("se_level0")
+    mp = pytest.MonkeyPatch()
+    mp.setenv("STAR_TPU_DEVICE_STITCH", "0")
+    mp.setenv("STAR_TPU_DUMP_STITCH", str(tmp / "dump"))
+    try:
+        _align_golden(tmp, "genome_idx", "se")
+    finally:
+        mp.undo()
+    with open(tmp / "dump" / "batch_0000.pkl", "rb") as f:
+        d = pickle.load(f)
+    gi = GenomeIndex.load(os.path.join(GOLD, "genome_idx"))
+    P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
+                    "--readFilesIn", "none.fastq"])
+    B = len(d["lread"])
+    recs = be.expand_hits(gi, P, d["seeds"], d["lread"], B)
+    ws, st, _, RS, Lpad = be.level_state(gi, P, recs, B, d["fwd"], d["rc"],
+                                         be.W_MAX, be.S_MAX)
+    return gi, P, ws, st, RS, Lpad, d["nmm_max"]
+
+
+def test_iteration_cap_reports_overflow_2(se_level0):
+    gi, P, ws, st, RS, Lpad, nmm = se_level0
+    ctx = ds.grow_context(gi, P, copy.deepcopy(st), ws, RS, nmm, Lpad,
+                          be.S_MAX, be.CHAIN_CAP, "cpu")
+    s_hi = int(ctx.wan.max())
+    NP = len(ctx.wan)
+    args = (ctx.Gf, ctx.rs_dev, torch.from_numpy(ctx.rows),
+            torch.from_numpy(ctx.pm), ctx.ft_dev, ctx.ct_dev, ctx.sjt,
+            torch.from_numpy(st.fallback.astype(np.int32)), s_hi)
+    A_CAP, AMAX = 1 << 14, 1 << 15
+
+    def run(cfg):
+        return ds.make_grow_engine2(cfg, AMAX, 1 << 17, A_CAP, NP, ctx.B,
+                                    ctx.lmax, int(gi.n_genome), ctx.ntab)(
+            *args)
+
+    full = run(ctx.cfg)
+    assert full[6] == 0 and full[3] > 0
+    # IT_MAX = s_max * (ATOT // A_CAP + 3) + 8 = 8 iterations with s_max 0,
+    # fewer than the s_hi steps this level needs: the loop stops early
+    assert s_hi > 8
+    capped = run(dataclasses.replace(ctx.cfg, s_max=0))
+    assert capped[6] == 2 and capped[7] == 8 and capped[3] < full[3]
+
+
+@pytest.mark.parametrize("a_hard,r_hard,bail", [(1024, 4096, False),
+                                                (16, 16, True)],
+                         ids=["split", "bail"])
+def test_capacity_overflow_retries_splits_and_bails(
+        tmp_path, monkeypatch, force_device_grow, a_hard, r_hard, bail):
+    """tiny hard caps force the capacity retry and the read-aligned group
+    split; caps below one read's chains raise a MemoryError that names the
+    read and the caps (the grow never moves to the host on its own)"""
+    monkeypatch.setattr(ds, "A_HARD", a_hard)
+    monkeypatch.setattr(ds, "R_HARD", r_hard)
+    seen = spy_grow(monkeypatch)
+    be.FB_STATS.clear()
+    if bail:
+        with pytest.raises(MemoryError, match="A_HARD=16 .* R_HARD=16"):
+            _align_golden(tmp_path, "genome_idx", "se")
+        assert be.FB_STATS["dev_retry_capacity"] > 0 and not seen
+        return
+    prefix = _align_golden(tmp_path, "genome_idx", "se")
+    assert be.FB_STATS["dev_retry_capacity"] > 0 and seen
+    assert _body(prefix + "Aligned.out.sam") == \
+        _body(os.path.join(GOLD, "se", "Aligned.out.sam"))
+
+
+@pytest.mark.parametrize("s_max,n_rec,off,want", [
+    (be.S_MAX, 99_999, False, False), (be.S_MAX, 100_000, False, True),
+    (50, 15_999, False, False), (50, 16_000, False, True),
+    (50, 10**6, True, False)])
+def test_device_grow_gate(monkeypatch, s_max, n_rec, off, want):
+    """each level's grow takes the card from its own record count (the
+    measured crossover), and STAR_TPU_DEVICE_STITCH=0 turns the card off"""
+    if off:
+        monkeypatch.setenv("STAR_TPU_DEVICE_STITCH", "0")
+    else:
+        monkeypatch.delenv("STAR_TPU_DEVICE_STITCH", raising=False)
+    gi = GenomeIndex.load(os.path.join(GOLD, "genome_idx"))
+    assert be._use_device_stitch(gi, s_max, n_rec) is want
