@@ -14,20 +14,29 @@ in order; any failure ends the run with a non-zero exit and no result line:
              equality), and timed beside its plain version, one library call
              and its bandwidth bound;
   3. golden  alignReads on cuda for the bundled se / pe goldens with the
-             device grow forced on every level: SAM (header stripped) and
-             SJ.out.tab byte-identical, grow fetch_rows launches > 0;
+             device stitch engine forced on every level (grow, finalize and,
+             on se, the too-many-loci select): SAM (header stripped) and
+             SJ.out.tab byte-identical, grow and finalize fetch_rows
+             launches > 0 on every level, reads classified over printed;
   4. full    a chr20-scale genome (40 + 20 Mb, SAi depth 12) and one
              16,384-read batch of 100 bp SE reads aligned on cuda: reads/s,
-             phase split, per-level reads / seed records / grow engine, grow
-             iterations and launches, kernel launches, peak device memory;
-             the grow sweep: each level's grow replayed from the batch's
-             dumped inputs on its first n reads, numpy engine against the
-             card (seconds, seed records, LaneStates equal), which places
-             the device-grow gate batch_engine.DEVICE_GROW_MIN_RECORDS;
-             1,024 probes held against the host MMP oracle; the first 256
-             reads' SAM against the per-read host path (--tpuUseDevice 0);
-             and the whole batch aligned again with the numpy grow: SAM and
-             SJ.out.tab byte-identical.
+             phase split, per level the reads / seed records / engine, the
+             device engine's grow, finalize, select, download and ordering
+             seconds, retired against downloaded lanes, grow iterations and
+             launches, kernel launches, peak device memory (each level
+             whose grow ran on the card must have finalized there); the
+             grow sweep: each level's grow replayed from the batch's dumped
+             inputs on its first n reads, numpy engine against the card
+             (seconds, seed records, LaneStates equal), which places the
+             device-grow gate batch_engine.DEVICE_GROW_MIN_RECORDS; the
+             stitch replayed with every fetch_rows call of the grow, the
+             finalize and the pack timed by CUDA events beside its bytes
+             bound; the W512 finalize replayed, numpy finalize_lanes against
+             the card (accept and extended lanes equal, both timed); 1,024
+             probes held against the host MMP oracle; the first 256 reads'
+             SAM against the per-read host path (--tpuUseDevice 0); and the
+             whole batch aligned again with the numpy engine
+             (STAR_TPU_DEVICE_STITCH=0): SAM and SJ.out.tab byte-identical.
 
 Then one JSON line of kernel measurements, the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}.
@@ -179,20 +188,49 @@ def levels(be):
                                                                in ls})}
 
 
+def check_card_levels(ds, be, label):
+    """every level whose grow ran on the card finalized there too: its
+    finalize launched fetch_rows and accepted chains"""
+    gs = ds.GROW_STATS
+    for w, (runs, dev) in levels(be).items():
+        if dev and (gs[w, "finalize_launches"] == 0
+                    or gs[w, "accepted"] == 0):
+            raise AssertionError(f"{label}: level W{w} grew on the card but "
+                                 "did not finalize there")
+
+
 def grow_report(ds, be, pipeline, label):
     ls = be.LEVEL_STATS
-    for w, (runs, dev) in levels(be).items():
-        log(f"{label}: level W{w}: {ls[w, 'reads']} reads, "
-            f"{ls[w, 'records']} seed records, grow on the card in {dev} "
-            f"of {runs} runs")
     gs = ds.GROW_STATS
     t = pipeline.TIMERS
-    log(f"{label}: grow calls {gs['calls']}, iterations {gs['iterations']}, "
-        f"steps {gs['steps']}, fetch_rows launches {gs['fetch_launches']}; "
-        f"dev_upload {t['dev_upload']:.3f} s, dev_grow {t['dev_grow']:.3f} s, "
-        f"dev_download {t['dev_download']:.3f} s, dev_order "
-        f"{t['dev_order']:.3f} s; FB_STATS "
-        f"{dict(sorted(be.FB_STATS.items()))}")
+    for w, (runs, dev) in levels(be).items():
+        log(f"{label}: level W{w}: {ls[w, 'reads']} reads, "
+            f"{ls[w, 'records']} seed records, stitch engine on the card in "
+            f"{dev} of {runs} runs")
+        if not dev:
+            log(f"{label}: level W{w}: numpy grow {t[f'grow_host_W{w}']:.3f}"
+                f" s, numpy finalize {t[f'finalize_W{w}']:.3f} s, assemble "
+                f"{t[f'assemble_W{w}']:.3f} s")
+            continue
+        log(f"{label}: level W{w}: grow_dev {t[f'grow_dev_W{w}']:.3f} s ("
+            + ", ".join(f"dev_{k} {t[f'dev_{k}_W{w}']:.3f} s" for k in
+                        ("upload", "grow", "finalize", "select", "download",
+                         "order"))
+            + f"), finalize_W{w} {t[f'finalize_W{w}']:.3f} s, assemble_W{w} "
+            f"{t[f'assemble_W{w}']:.3f} s; {gs[w, 'iterations']} "
+            f"iterations, {gs[w, 'steps']} steps; {gs[w, 'retired']} lanes "
+            f"retired, {gs[w, 'accepted']} accepted, {gs[w, 'downloaded']} "
+            f"downloaded, {gs[w, 'over']} reads over the multimap limit; "
+            f"fetch_rows launches: grow {gs[w, 'fetch_launches']}, finalize "
+            f"{gs[w, 'finalize_launches']}, pack {gs[w, 'pack_launches']}")
+    log(f"{label}: FB_STATS {dict(sorted(be.FB_STATS.items()))}")
+
+
+def stitch_launches(ds):
+    """fetch_rows launches of the stitch engine: {grow, finalize, pack}"""
+    gs = ds.GROW_STATS
+    return {k: sum(v for (w, n), v in gs.items() if n == f"{k}_launches")
+            for k in ("fetch", "finalize", "pack")}
 
 
 def reset_counts(ds, be, pipeline):
@@ -237,13 +275,18 @@ def phase_golden(fetch):
             if not lv or any(dev != runs for runs, dev in lv.values()):
                 raise AssertionError(f"golden {case}: a level's grow did not "
                                      "run on the card")
-            if ds.GROW_STATS["fetch_launches"] == 0:
+            check_card_levels(ds, be, f"golden {case}")
+            sl = stitch_launches(ds)
+            if sl["fetch"] == 0:
                 raise AssertionError(f"golden {case}: the grow launched no "
                                      "fetch_rows")
+            n_over = sum(v for (w, k), v in ds.GROW_STATS.items()
+                         if k == "over")
             log(f"golden {case}: SAM and SJ.out.tab identical, "
                 f"{fetch.LAUNCHES - n0} fetch_rows launches (grow "
-                f"{ds.GROW_STATS['fetch_launches']}), "
-                f"{time.time() - t0:.2f} s")
+                f"{sl['fetch']}, finalize {sl['finalize']}, pack "
+                f"{sl['pack']}), {n_over} reads classified over the multimap "
+                f"limit on the card, {time.time() - t0:.2f} s")
             grow_report(ds, be, pipeline, f"golden {case}")
     finally:
         be.DEVICE_GROW_MIN_RECORDS = gate
@@ -269,7 +312,33 @@ def load_dump(gi, P, dump):
     return d
 
 
-def grow_sweep(np, gi, P, d):
+def level_reach(np, gi, P, d):
+    """{w_max: the reads of the batch that reach the level}: all reads
+    reach level 0, and those it leaves in fallback the W512 level"""
+    from star_tpu_torch.ops import batch_engine as be
+    B = len(d["lread"])
+    fb0, _ = be._stitch_level(gi, P, d["recs"], d["lread"], d["fwd"], d["rc"],
+                              d["read_len2"], d["nmm_max"], be.W_MAX,
+                              be.S_MAX, be.CHAIN_CAP, lazy=True,
+                              device=DEVICE)
+    return {be.W_MAX: np.arange(B), 512: np.nonzero(fb0)[0]}
+
+
+def sub_level(np, gi, P, d, idx, w_max, s_max):
+    """the grow inputs of one level on the reads idx of the dumped batch:
+    (ws, st, seed records, RS, Lpad)"""
+    from star_tpu_torch.ops import batch_engine as be
+    B = len(d["lread"])
+    mask = np.zeros(B, bool)
+    mask[idx] = True
+    new_index = np.zeros(B, np.int64)
+    new_index[idx] = np.arange(len(idx))
+    sub = be._slice_seed_recs(d["recs"], mask, new_index)
+    return be.level_state(gi, P, sub, len(idx), d["fwd"][idx], d["rc"][idx],
+                          w_max, s_max)
+
+
+def grow_sweep(np, gi, P, d, reach):
     """each level's grow replayed on the first n reads that reach it, numpy
     engine against the card (LaneStates and fallbacks equal).  Returns
     {w_max: [(reads, seed records, numpy s, card s), ...]}; the card's time
@@ -278,26 +347,13 @@ def grow_sweep(np, gi, P, d):
     import torch
     from star_tpu_torch.ops import batch_engine as be
     from star_tpu_torch.ops import device_stitch as ds
-    B = len(d["lread"])
-    # the reads that reach the W512 level: those level 0 leaves in fallback
-    fb0, _ = be._stitch_level(gi, P, d["recs"], d["lread"], d["fwd"], d["rc"],
-                              d["read_len2"], d["nmm_max"], be.W_MAX,
-                              be.S_MAX, be.CHAIN_CAP, lazy=True,
-                              device=DEVICE)
-    reach = {be.W_MAX: np.arange(B), 512: np.nonzero(fb0)[0]}
     out = {}
     for w_max, s_max, chain_cap in be.LEVELS:
         rows = out[w_max] = []
         for n in SWEEP[w_max]:
             idx = reach[w_max][:n]
-            mask = np.zeros(B, bool)
-            mask[idx] = True
-            new_index = np.zeros(B, np.int64)
-            new_index[idx] = np.arange(len(idx))
-            sub = be._slice_seed_recs(d["recs"], mask, new_index)
-            ws, st, n_rec, RS, Lpad = be.level_state(
-                gi, P, sub, len(idx), d["fwd"][idx], d["rc"][idx], w_max,
-                s_max)
+            ws, st, n_rec, RS, Lpad = sub_level(np, gi, P, d, idx, w_max,
+                                                s_max)
             nmm = d["nmm_max"][idx]
             st_np = copy.deepcopy(st)
             t0 = time.time()
@@ -310,7 +366,7 @@ def grow_sweep(np, gi, P, d):
                 torch.cuda.synchronize()
                 t0 = time.time()
                 got = ds.grow_chains_device(gi, P, st_d, ws, RS, nmm, Lpad,
-                                            s_max, chain_cap, DEVICE)
+                                            s_max, chain_cap, DEVICE)[0]
                 torch.cuda.synchronize()
                 t_dev.append(time.time() - t0)
                 if not np.array_equal(st_d.fallback, st_np.fallback):
@@ -336,14 +392,74 @@ def grow_sweep(np, gi, P, d):
     return out
 
 
-def replay_grow_fetches(torch, gi, P, d, fetch, want_launches):
+def finalize_replay(np, gi, P, d, reach, pipeline):
+    """the W512 level's finalize replayed on every read that reaches it:
+    the card's grow + finalize with every retired lane downloaded, against
+    the card's grow alone followed by numpy finalize_lanes; accept and the
+    extended LaneStates must be equal.  Returns (numpy s, card s)"""
+    import copy
+    import torch
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    w_max, s_max, chain_cap = be.LEVELS[1]
+    idx = reach[w_max]
+    ws, st, n_rec, RS, Lpad = sub_level(np, gi, P, d, idx, w_max, s_max)
+    nmm, lread, read_len2 = (d[k][idx] for k in ("nmm_max", "lread",
+                                                 "read_len2"))
+    st_h = copy.deepcopy(st)
+    lanes_h = ds.grow_chains_device(gi, P, st_h, ws, RS, nmm, Lpad, s_max,
+                                    chain_cap, DEVICE)[0]
+    t0 = time.time()
+    acc_h = be.finalize_lanes(gi, P, gi.G.view(np.uint8), RS, lanes_h, ws,
+                              nmm, read_len2, lread, Lpad)
+    t_np = time.time() - t0
+    pipeline.TIMING = True
+    pipeline.TIMERS.clear()
+    try:
+        lanes_d, acc_d, _ = ds.grow_chains_device(
+            gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, DEVICE,
+            lread=lread, read_len2=read_len2, classify=False)
+        torch.cuda.synchronize()
+    finally:
+        pipeline.TIMING = False
+    t_card = pipeline.TIMERS[f"dev_finalize_W{w_max}"]
+    if not np.array_equal(st.fallback, st_h.fallback) \
+            or not np.array_equal(acc_d, acc_h):
+        raise AssertionError("finalize replay W512: accept differs")
+    for k in be._lane_fields():
+        if not np.array_equal(getattr(lanes_d, k), getattr(lanes_h, k)):
+            raise AssertionError(f"finalize replay W512: lanes differ in {k}")
+    log(f"full: finalize replay W{w_max}: {len(idx)} reads, {n_rec} seed "
+        f"records, {len(acc_h)} chains, {int(acc_h.sum())} accepted: numpy "
+        f"finalize_lanes {t_np:.3f} s, card dev_finalize {t_card:.3f} s; "
+        "accept and extended LaneStates equal")
+    return t_np, t_card
+
+
+# the stitch engine function whose fetch_rows calls are each phase's
+STITCH_PHASES = {"_finalize_rows": "finalize", "pack_rows": "pack",
+                 "grow": "grow"}
+
+
+def replay_stitch_fetches(torch, gi, P, d, fetch, want):
     """the batch's stitch again from its dumped inputs, with every fetch_rows
-    call of the grow timed by CUDA events and its bound computed from its
-    rows: the grow's share of the fetch_rows kernel (the seed loop's calls
-    do not pass through fetch.fetch_rows' module attribute)"""
+    call of the stitch engine timed by CUDA events and its bound computed
+    from its rows, per phase (grow, finalize, pack; found from the caller's
+    frames): the stitch engine's share of the fetch_rows kernel (the seed
+    loop's calls do not pass through fetch.fetch_rows' module attribute).
+    want: the main path's launches per phase.  Returns {phase: (launches,
+    rows, kernel ms, bound ms)}."""
     from star_tpu_torch.ops import batch_engine as be
     calls = []
     real = fetch.fetch_rows
+
+    def phase():
+        f = sys._getframe(2)
+        while f is not None:
+            if f.f_code.co_name in STITCH_PHASES:
+                return STITCH_PHASES[f.f_code.co_name]
+            f = f.f_back
+        raise AssertionError("a fetch_rows call outside the stitch engine")
 
     def timed(table, off):
         a = torch.cuda.Event(enable_timing=True)
@@ -353,7 +469,7 @@ def replay_grow_fetches(torch, gi, P, d, fetch, want_launches):
         b.record()
         live = off[off >= 0]
         nb, _ = row_bytes(torch, live, live.numel(), 0, fetch.FET, fetch.TILE)
-        calls.append((a, b, nb + off.numel() * 8, off.numel()))
+        calls.append((phase(), a, b, nb + off.numel() * 8, off.numel()))
         return rows
 
     fetch.fetch_rows = timed
@@ -363,17 +479,21 @@ def replay_grow_fetches(torch, gi, P, d, fetch, want_launches):
         torch.cuda.synchronize()
     finally:
         fetch.fetch_rows = real
-    if len(calls) != want_launches:
-        raise AssertionError(f"grow replay: {len(calls)} fetch_rows calls, "
-                             f"the main path made {want_launches}")
-    kern_ms = sum(a.elapsed_time(b) for a, b, _, _ in calls)
-    nbytes = sum(c[2] for c in calls)
-    rows = sum(c[3] for c in calls)
-    bound_ms = nbytes / HBM_BW * 1e3
-    log(f"full: the grow's fetch_rows calls (replayed): {len(calls)} "
-        f"launches, {rows} rows, kernel {kern_ms:.3f} ms, bound "
-        f"{bound_ms:.3f} ms ({nbytes} B at {HBM_BW:.3g} B/s)")
-    return kern_ms, bound_ms
+    out = {}
+    for ph in ("grow", "finalize", "pack"):
+        cs = [c for c in calls if c[0] == ph]
+        if len(cs) != want[ph]:
+            raise AssertionError(f"stitch replay: {len(cs)} {ph} fetch_rows "
+                                 f"calls, the main path made {want[ph]}")
+        kern_ms = sum(a.elapsed_time(b) for _, a, b, _, _ in cs)
+        nbytes = sum(c[3] for c in cs)
+        rows = sum(c[4] for c in cs)
+        bound_ms = nbytes / HBM_BW * 1e3
+        out[ph] = (len(cs), rows, kern_ms, bound_ms)
+        log(f"full: the {ph}'s fetch_rows calls (replayed): {len(cs)} "
+            f"launches, {rows} rows, kernel {kern_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({nbytes} B at {HBM_BW:.3g} B/s)")
+    return out
 
 
 def phase_full(torch, np, fetch, data_proc, data):
@@ -431,7 +551,7 @@ def phase_full(torch, np, fetch, data_proc, data):
                 "tile_fetch": tile_fetch.LAUNCHES}
     pipeline.TIMING = False
     peak = torch.cuda.max_memory_allocated()
-    grow_launches = ds.GROW_STATS["fetch_launches"]
+    sl = stitch_launches(ds)
     if launches["fetch_rows"] == 0:
         raise AssertionError("full: fetch_rows never launched")
     if stats.read_n != N_READS:
@@ -440,10 +560,12 @@ def phase_full(torch, np, fetch, data_proc, data):
     log(f"full: {N_READS} reads in {wall:.2f} s = {N_READS / wall:.1f} "
         f"reads/s (index upload included); fetch_rows launches "
         f"{launches['fetch_rows']} (seed loop "
-        f"{launches['fetch_rows'] - grow_launches}, grow {grow_launches}); "
-        f"peak device memory {peak} B")
+        f"{launches['fetch_rows'] - sum(sl.values())}, grow {sl['fetch']}, "
+        f"finalize {sl['finalize']}, pack {sl['pack']}); peak device memory "
+        f"{peak} B")
     log(f"full: phases {pipeline.timing_report()}")
     grow_report(ds, be, pipeline, "full")
+    check_card_levels(ds, be, "full")
     lv = levels(be)
     gate = {w: be.DEVICE_GROW_MIN_RECORDS[s] for w, s, _ in be.LEVELS}
     for w, (runs, dev) in lv.items():
@@ -458,9 +580,13 @@ def phase_full(torch, np, fetch, data_proc, data):
         os.replace(out + f, out + f + ".device")
 
     d = load_dump(gi, P, os.path.join(dump, sorted(os.listdir(dump))[0]))
-    replay = {"sweep": grow_sweep(np, gi, P, d)}
-    replay["grow_fetch_ms"], replay["grow_fetch_bound_ms"] = \
-        replay_grow_fetches(torch, gi, P, d, fetch, grow_launches)
+    reach = level_reach(np, gi, P, d)
+    replay = {"sweep": grow_sweep(np, gi, P, d, reach),
+              "fetches": replay_stitch_fetches(
+                  torch, gi, P, d, fetch, {"grow": sl["fetch"],
+                                           "finalize": sl["finalize"],
+                                           "pack": sl["pack"]}),
+              "finalize": finalize_replay(np, gi, P, d, reach, pipeline)}
     del d
 
     # ---- 1,024 probes of the batch's reads vs the host oracle
@@ -511,7 +637,7 @@ def phase_full(torch, np, fetch, data_proc, data):
     log(f"full: first {N_HOST_READS} reads' SAM ({len(host_lines)} lines) "
         f"identical to --tpuUseDevice 0 ({time.time() - t0:.1f} s)")
 
-    # ---- the whole batch again with the numpy grow on every level
+    # ---- the whole batch again with the numpy engine on every level
     os.environ["STAR_TPU_DEVICE_STITCH"] = "0"
     pipeline.TIMING = True
     pipeline.TIMERS.clear()
@@ -522,17 +648,17 @@ def phase_full(torch, np, fetch, data_proc, data):
         del os.environ["STAR_TPU_DEVICE_STITCH"]
         pipeline.TIMING = False
     wall_np = time.time() - t0
-    log("full: numpy-grow run: " + ", ".join(
+    log("full: numpy-engine run: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in sorted(pipeline.TIMERS.items())
-        if k.startswith(("grow_", "stitch_level_"))))
+        if k.startswith(("grow_", "finalize_", "stitch_level_"))))
     for f in ("Aligned.out.sam", "SJ.out.tab"):
         with open(out + f, "rb") as a, open(out + f + ".device", "rb") as b_:
             if a.read() != b_.read():
-                raise AssertionError(f"full: {f} of the device grow differs "
-                                     "from the numpy grow")
-    log(f"full: SAM and SJ.out.tab byte-identical to the numpy-grow run of "
-        f"the same batch (device grow {wall:.2f} s = "
-        f"{N_READS / wall:.1f} reads/s, numpy grow {wall_np:.2f} s = "
+                raise AssertionError(f"full: {f} of the device engine "
+                                     "differs from the numpy engine")
+    log(f"full: SAM and SJ.out.tab byte-identical to the numpy-engine run "
+        f"of the same batch (device engine {wall:.2f} s = "
+        f"{N_READS / wall:.1f} reads/s, numpy engine {wall_np:.2f} s = "
         f"{N_READS / wall_np:.1f} reads/s)")
     return launches, replay
 

@@ -43,11 +43,12 @@ DEVICE_GROW_MIN_RECORDS = {S_MAX: 100_000, 50: 16_000}
 
 
 def _use_device_stitch(gi, s_max: int, n_records: int) -> bool:
-    """gate for the device grow engine (ops/device_stitch.py): int32
-    positions require a <2^30-base genome (bigger genomes keep the numpy
-    engine); mask words cover s_max <= 50; levels with fewer seed records
-    than DEVICE_GROW_MIN_RECORDS[s_max] stay on the numpy engine.
-    STAR_TPU_DEVICE_STITCH=0 turns the device grow off."""
+    """gate for the device stitch engine (ops/device_stitch.py: grow,
+    finalize and select): int32 positions require a <2^30-base genome
+    (bigger genomes keep the numpy engine); mask words cover s_max <= 50;
+    levels with fewer seed records than DEVICE_GROW_MIN_RECORDS[s_max] stay
+    on the numpy engine.  STAR_TPU_DEVICE_STITCH=0 turns the device engine
+    off."""
     if _os.environ.get("STAR_TPU_DEVICE_STITCH", "1") == "0":
         return False
     if int(gi.n_genome) >= (1 << 30) or s_max > 50:
@@ -1783,8 +1784,12 @@ class _LaneTr:
 
 
 def assemble(gi, P, lanes: LaneState, accept, ws: WindowsState,
-             wa_n_dense, fallback, lread, lazy=False):
-    """returns {read_i: (all_win_tr, maxScoreMate)} for non-fallback reads.
+             wa_n_dense, fallback, lread, lazy=False, over=None):
+    """returns {read_i: (all_win_tr, maxScoreMate[, over_flag])} for
+    non-fallback reads.  `over` (device classification): reads proven
+    'mapped to too many loci' on device arrive with only their trBest lane;
+    their result carries over_flag=True and a single-window single-lane
+    list that _fast_finish consumes without the admission replay.
 
     Replays the engine's window loop and stitchWindowAligns' transcript
     recording (maxScoreMate gate, overlap dedup, sorted top-list) over the
@@ -1823,6 +1828,7 @@ def assemble(gi, P, lanes: LaneState, accept, ws: WindowsState,
     chim = P.chimSegmentMin > 0
     cap_possible = ws.win_alive.shape[1] * P.alignTranscriptsPerWindowNmax \
         >= P.alignTranscriptsPerReadNmax
+    over_l = over.tolist() if over is not None else None
 
     NA = len(oi)
     i = 0
@@ -1831,6 +1837,18 @@ def assemble(gi, P, lanes: LaneState, accept, ws: WindowsState,
         if fb_l[b]:
             while i < NA and l_b[i] == b:
                 i += 1
+            continue
+        if over_l is not None and over_l[b]:
+            # device-classified too-many-loci read: exactly its trBest lane
+            # was downloaded — no admission replay needed
+            assert i < NA and l_b[i] == b
+            li = int(oi[i])
+            tr = _LaneTr(lanes, ws, li, l_ne[i], l_score[i], l_ifrag[i],
+                         b, l_w[i], int(lread[b]), l_ml[i], l_gl[i],
+                         l_nmatch[i], l_nmm[i])
+            while i < NA and l_b[i] == b:
+                i += 1
+            results[b] = ([[tr]], [0, 0], True)
             continue
         msm = [0, 0]
         all_win_tr = []
@@ -2043,23 +2061,26 @@ def _stitch_level_inner(gi, P, recs, lread, read_fwd_u8, read_rc_u8,
     for k, v in (("runs", 1), ("reads", B), ("records", n_rec),
                  ("device", on_device)):
         LEVEL_STATS[w_max, k] += int(v)
+    over = None
     if on_device:
+        # grow, finalize and (single-end) select on the device
         from .device_stitch import grow_chains_device
         from .fetch import resolve_device
         with _tick(f"grow_dev_W{w_max}"):
-            lanes = grow_chains_device(gi, P, st, ws, RS, nmm_max_read, Lpad,
-                                       s_max, chain_cap,
-                                       resolve_device(device))
+            lanes, accept, over = grow_chains_device(
+                gi, P, st, ws, RS, nmm_max_read, Lpad, s_max, chain_cap,
+                resolve_device(device), lread=lread, read_len2=read_len2,
+                classify=lazy)
     else:
         with _tick(f"grow_host_W{w_max}"):
             lanes = grow_chains(gi, P, G, RS, st, ws, nmm_max_read, Lpad,
                                 chain_cap=chain_cap)
-    with _tick(f"finalize_W{w_max}"):
-        accept = finalize_lanes(gi, P, G, RS, lanes, ws, nmm_max_read,
-                                read_len2, lread, Lpad)
+        with _tick(f"finalize_W{w_max}"):
+            accept = finalize_lanes(gi, P, G, RS, lanes, ws, nmm_max_read,
+                                    read_len2, lread, Lpad)
     with _tick(f"assemble_W{w_max}"):
         results = assemble(gi, P, lanes, accept, ws, st.wa_n_dense,
-                           st.fallback, lread, lazy=lazy)
+                           st.fallback, lread, lazy=lazy, over=over)
     return st.fallback, results
 
 

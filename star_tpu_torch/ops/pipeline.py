@@ -32,10 +32,12 @@ MAXP = 64  # probes per chain cap (matches the round-1 64-round cap)
 
 # per-phase wall-clock accumulators, enabled with STAR_TPU_TIMING=1.
 # Keys: prepare, seed_loop, replay, stitch_batch, finish; per escalation
-# level stitch_level_W<w> with its parts windows_W<w>, the grow (grow_dev_W<w>
-# on the device, else grow_host_W<w>), finalize_W<w> and assemble_W<w>; the
-# device grows' parts dev_upload, dev_grow, dev_download and dev_order (the
-# host's DFS ordering of the downloaded chains).
+# level stitch_level_W<w> with its parts windows_W<w>, the stitch engine
+# (grow_dev_W<w> on the device: grow, finalize and select; else
+# grow_host_W<w> and the numpy finalize_W<w>) and assemble_W<w>; the device
+# engine's parts dev_upload_W<w>, dev_grow_W<w>, dev_finalize_W<w>,
+# dev_select_W<w>, dev_download_W<w> (with the pack) and dev_order_W<w>
+# (the host's DFS ordering of the downloaded chains).
 # STAR_TPU_DUMP_STITCH=<dir> pickles each batch's stitch inputs there.
 import collections as _collections
 import os as _os
@@ -318,7 +320,8 @@ def _fast_finish(host, res, seeds, pre, P, gi):
         host._finish_unmapped(res)
         return res
 
-    win_list, msm = pre
+    win_list, msm = pre[0], pre[1]
+    over = len(pre) > 2 and pre[2]
     tb = None
     for win in win_list:
         w0 = win[0]
@@ -332,9 +335,16 @@ def _fast_finish(host, res, seeds, pre, P, gi):
 
     max_score = tb.maxScore
     rng = P.outFilterMultimapScoreRange
-    prox = [t for win in win_list for t in win
-            if t.maxScore + rng >= max_score]
-    n_tr = len(prox)
+    if over:
+        # device-classified too-many-loci read (ops/device_stitch.py
+        # select_lanes): n_tr provably exceeds the cap; its exact value is
+        # not consumed anywhere downstream
+        prox = []
+        n_tr = P.outFilterMultimapNmax + 1
+    else:
+        prox = [t for win in win_list for t in win
+                if t.maxScore + rng >= max_score]
+        n_tr = len(prox)
     res.n_tr = n_tr
     res.all_win_tr = []
 

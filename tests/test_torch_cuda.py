@@ -1,7 +1,8 @@
 """Tests of star_tpu_torch that need an NVIDIA GPU: the hand-written CUDA
 kernels against their plain PyTorch versions, the MMP search on the card
-against the host oracle, and the device grow on the card against the numpy
-grow.  They skip where no card is present.  This file
+against the host oracle, the device grow on the card against the numpy
+grow, and the device finalize, select and pack on the card against the same
+engine on CPU tensors.  They skip where no card is present.  This file
 imports neither jax nor star_tpu, so on a machine with a card and no jax it
 runs as
 
@@ -124,18 +125,35 @@ def test_device_grow_on_card_matches_numpy(cuda, tmp_path, monkeypatch, case,
     real = ds.grow_chains_device
     grown = []
 
-    def spy(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device):
+    def spy(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device,
+            lread=None, read_len2=None, classify=False):
         st_np = copy.deepcopy(st)
-        want = be.grow_chains(gi, P, gi.G.view(np.uint8), RS, st_np, ws, nmm,
-                              Lpad, chain_cap=chain_cap)
+        st_cpu = copy.deepcopy(st)
+        G = gi.G.view(np.uint8)
+        want = be.grow_chains(gi, P, G, RS, st_np, ws, nmm, Lpad,
+                              chain_cap=chain_cap)
         n0 = fetch.LAUNCHES
-        got = real(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device)
+        got = real(gi, P, copy.deepcopy(st), ws, RS, nmm, Lpad, s_max,
+                   chain_cap, device)[0]
         assert device.type == "cuda" and fetch.LAUNCHES > n0
-        assert np.array_equal(st.fallback, st_np.fallback)
         for k in be._lane_fields():
             assert np.array_equal(getattr(got, k), getattr(want, k)), k
+        # grow + finalize (+ select on se) on the card, as the run calls it,
+        # against the same engine on CPU tensors
+        out = real(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device,
+                   lread=lread, read_len2=read_len2, classify=classify)
+        ref = real(gi, P, st_cpu, ws, RS, nmm, Lpad, s_max, chain_cap, "cpu",
+                   lread=lread, read_len2=read_len2, classify=classify)
+        assert np.array_equal(st.fallback, st_np.fallback)
+        assert np.array_equal(st_cpu.fallback, st_np.fallback)
+        assert out[1] is not None and (out[2] is None) == (case == "pe")
+        for k in be._lane_fields():
+            assert np.array_equal(getattr(out[0], k), getattr(ref[0], k)), k
+        assert np.array_equal(out[1], ref[1])
+        assert (out[2] is None and ref[2] is None) \
+            or np.array_equal(out[2], ref[2])
         grown.append(len(want.b))
-        return got
+        return out
 
     monkeypatch.setattr(ds, "grow_chains_device", spy)
     gi = GenomeIndex.load(os.path.join(GOLD, "genome_idx"))
@@ -153,3 +171,56 @@ def test_device_grow_on_card_matches_numpy(cuda, tmp_path, monkeypatch, case,
             return [l for l in f if not l.startswith("@")]
     assert body(prefix + "Aligned.out.sam") == \
         body(os.path.join(GOLD, case, "Aligned.out.sam"))
+
+
+@pytest.mark.cuda
+def test_device_finalize_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """the se golden's level-0 grow, finalize and select on the card equal
+    the same engine on CPU tensors (every retired lane without the select,
+    the downloaded lanes with it), with the finalize's and the pack's
+    fetch_rows launches counted"""
+    import copy
+    import pickle
+    from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    idx = os.path.join(GOLD, "genome_idx")
+    monkeypatch.setenv("STAR_TPU_DEVICE_STITCH", "0")
+    monkeypatch.setenv("STAR_TPU_DUMP_STITCH", str(tmp_path / "dump"))
+    gi = GenomeIndex.load(idx)
+    align_reads(Parameters(
+        ["--genomeDir", idx, "--readFilesIn",
+         os.path.join(ROOT, "tests", "data", "small", "reads_se.fastq"),
+         "--outFileNamePrefix", str(tmp_path) + "/"]), gi=gi, device="cpu")
+    with open(tmp_path / "dump" / "batch_0000.pkl", "rb") as f:
+        d = pickle.load(f)
+    # a multimap limit of 1 makes the select classify some reads over
+    P = Parameters(["--genomeDir", idx, "--readFilesIn", "none.fastq",
+                    "--outFilterMultimapNmax", "1"])
+    B = len(d["lread"])
+    recs = be.expand_hits(gi, P, d["seeds"], d["lread"], B)
+    ws, st, _, RS, Lpad = be.level_state(gi, P, recs, B, d["fwd"], d["rc"],
+                                         be.W_MAX, be.S_MAX)
+    for classify in (False, True):
+        res = {}
+        for dev in (cuda, torch.device("cpu")):
+            ds.GROW_STATS.clear()
+            res[dev.type] = ds.grow_chains_device(
+                gi, P, copy.deepcopy(st), ws, RS, d["nmm_max"], Lpad,
+                be.S_MAX, be.CHAIN_CAP, dev, lread=d["lread"],
+                read_len2=d["read_len2"], classify=classify)
+            if dev.type == "cuda":
+                gs = dict(ds.GROW_STATS)
+        (got, acc, over), (want, acc_c, over_c) = res["cuda"], res["cpu"]
+        for k in be._lane_fields():
+            assert np.array_equal(getattr(got, k), getattr(want, k)), k
+        assert np.array_equal(acc, acc_c) and acc.any()
+        assert gs[be.W_MAX, "finalize_launches"] > 0
+        if classify:
+            assert np.array_equal(over, over_c) and over.any()
+            assert gs[be.W_MAX, "pack_launches"] == 3
+            assert gs[be.W_MAX, "downloaded"] < gs[be.W_MAX, "accepted"]
+        else:
+            assert over is None and (~acc).any()

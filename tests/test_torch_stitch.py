@@ -1,12 +1,14 @@
-"""The port's device grow engine (star_tpu_torch/ops/device_stitch.py) on the
-CPU, where fetch_rows takes its plain version.
+"""The port's device stitch engine (star_tpu_torch/ops/device_stitch.py) on
+the CPU, where fetch_rows takes its plain version.
 
 Every grow the alignment runs is held, field by field, against the port's
 numpy grow_chains on copies of the same inputs, with the same chain-cap
-fallbacks, on every escalation level of the five
-goldens; the same runs, with the device grow forced on every level, give
-the goldens byte for byte.  Exact equality throughout (integer data, text
-outputs).  More engine cases: test_torch_stitch_engine.py."""
+fallbacks, on every escalation level of the five goldens; so is its
+finalize (accept and the extended lanes) against numpy finalize_lanes, and
+on single-end runs its select against a numpy form of the same rule.  The
+same runs, with the device engine forced on every level, give the goldens
+byte for byte.  Exact equality throughout (integer data, text outputs).
+More engine cases: test_torch_stitch_engine.py, test_torch_finalize.py."""
 import copy
 import os
 
@@ -53,23 +55,91 @@ def assert_lanes_equal(got, want):
         assert a.shape == b.shape and np.array_equal(a, b), k
 
 
+NEGI, BIGI = -(1 << 30), 1 << 30
+
+
+def numpy_select(P, lanes, accept, B):
+    """numpy form of the device select (device_stitch.select_lanes) over the
+    numpy engine's finalized lanes, which are in (read, window, DFS) order:
+    (over [B] bool, indices of the lanes a classifying run downloads)"""
+    ai = np.nonzero(accept)[0]
+    b = lanes.b[ai].astype(np.int64)
+    score = lanes.score[ai]
+    occ = np.arange(ds.E)[None, :] < lanes.n_ex[ai][:, None]
+    ml = np.where(occ, lanes.ex_len[ai], 0).sum(axis=1)
+    up, inv = np.unique(lanes.prow[ai], return_inverse=True)
+    pb = np.zeros(len(up), np.int64)
+    pb[inv] = b
+    wmax = np.full(len(up), NEGI, np.int64)
+    np.maximum.at(wmax, inv, score)
+    rmax = np.full(B, NEGI, np.int64)
+    np.maximum.at(rmax, pb, wmax)
+    prox = wmax + P.outFilterMultimapScoreRange >= rmax[pb]
+    nwin = np.bincount(pb[prox], minlength=B)
+    mlmax = np.full(len(up), NEGI, np.int64)
+    np.maximum.at(mlmax, inv, ml)
+    mlmin = np.full(len(up), BIGI, np.int64)
+    np.minimum.at(mlmin, inv, ml)
+    unsafe = np.zeros(B, bool)
+    np.logical_or.at(unsafe, pb, prox & (mlmax != mlmin))
+    over = (nwin > P.outFilterMultimapNmax) & ~unsafe
+    # trBest: score desc, gLength asc, window asc, then the first in DFS
+    glen = lanes.tG2[ai] + 1 - lanes.ex_gs[ai, 0]
+    order = np.lexsort((np.arange(len(ai)), lanes.w[ai], glen, -score, b))
+    first = np.ones(len(order), bool)
+    first[1:] = b[order][1:] != b[order][:-1]
+    tb = np.zeros(len(ai), bool)
+    tb[order[first]] = True
+    return over, ai[~over[b] | tb]
+
+
+def check_stitch(gi, P, st, ws, RS, nmm, Lpad, chain_cap, lread, read_len2,
+                 got, acc, over):
+    """hold one device grow (+ finalize, + select) result, made from st,
+    against the numpy engine on a copy of st taken before it.  Returns the
+    numpy lanes (grown, finalized where lread is given)."""
+    G = gi.G.view(np.uint8)
+    st_np = copy.deepcopy(st)
+    want = be.grow_chains(gi, P, G, RS, st_np, ws, nmm, Lpad,
+                          chain_cap=chain_cap)
+    if lread is None:
+        assert acc is None and over is None
+        assert_lanes_equal(got, want)
+        return want, st_np
+    want_acc = be.finalize_lanes(gi, P, G, RS, want, ws, nmm, read_len2,
+                                 lread, Lpad)
+    if over is None:             # no classify: every retired lane
+        assert_lanes_equal(got, want)
+        assert np.array_equal(acc, want_acc)
+    else:
+        want_over, keep = numpy_select(P, want, want_acc, ws.n_reads)
+        assert np.array_equal(over, want_over)
+        assert acc.all()
+        assert_lanes_equal(got, be._lanes_take(want, keep))
+    return want, st_np
+
+
 def spy_grow(monkeypatch):
     """wrap the port's grow_chains_device: each call also runs the numpy
-    grow_chains on copies of its inputs, and asserts equal LaneStates and
-    fallbacks.  Returns the list of calls seen."""
+    grow_chains (and finalize_lanes, and the select's numpy form) on copies
+    of its inputs, and asserts equal results and fallbacks.  Returns the
+    list of calls seen."""
     real = ds.grow_chains_device
     seen = []
 
-    def spy(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device):
-        st_np = copy.deepcopy(st)
-        want = be.grow_chains(gi, P, gi.G.view(np.uint8), RS, st_np, ws, nmm,
-                              Lpad, chain_cap=chain_cap)
-        got = real(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device)
-        assert_lanes_equal(got, want)
+    def spy(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device,
+            lread=None, read_len2=None, classify=False):
+        st0 = copy.deepcopy(st)
+        got, acc, over = real(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap,
+                              device, lread=lread, read_len2=read_len2,
+                              classify=classify)
+        want, st_np = check_stitch(gi, P, st0, ws, RS, nmm, Lpad, chain_cap,
+                                   lread, read_len2, got, acc, over)
         assert np.array_equal(st.fallback, st_np.fallback)
         seen.append({"w_max": ws.win_alive.shape[1], "lanes": len(want.b),
-                     "Lpad": Lpad})
-        return got
+                     "Lpad": Lpad, "finalized": acc is not None,
+                     "over": None if over is None else int(over.sum())})
+        return got, acc, over
 
     monkeypatch.setattr(ds, "grow_chains_device", spy)
     return seen
@@ -100,7 +170,9 @@ def test_device_grow_matches_numpy_and_goldens(tmp_path, monkeypatch,
     seen = spy_grow(monkeypatch)
     be.LEVEL_STATS.clear()
     prefix = _align_golden(tmp_path, idx, reads)
-    assert seen and all(c["lanes"] > 0 for c in seen)
+    assert seen and all(c["lanes"] > 0 and c["finalized"] for c in seen)
+    # single-end levels classify on the device, paired-end levels do not
+    assert all((c["over"] is None) == (reads == "pe") for c in seen)
     runs = {w: be.LEVEL_STATS[w, "runs"] for w, _ in be.LEVEL_STATS}
     assert runs and all(be.LEVEL_STATS[w, "device"] == n
                         for w, n in runs.items())

@@ -1,8 +1,11 @@
-"""The port's device grow against star_tpu's: every grow that the se
-alignment runs through the port (device grow forced on every level; the pe
-case is in test_torch_stitch_jax_pe.py) is held, field by field, against
-star_tpu.ops.device_stitch.grow_chains_device (lread=None, its CPU gather
-layer; the port runs the fetch layer) on copies of the same inputs.
+"""The port's device stitch engine against star_tpu's: every grow, finalize
+and (single-end) select that the se alignment runs through the port (device
+engine forced on every level; the pe case is in test_torch_stitch_jax_pe.py)
+is held against star_tpu.ops.device_stitch.grow_chains_device with
+lread/read_len2 (its CPU gather layer and its finalize engine; on se its
+select engine too, forced with STAR_TPU_DEV_CLASSIFY_MIN=0) on copies of the
+same inputs: the over flags exactly, the lanes and their accept flags
+field by field.
 
 Two faults of the JAX engine are not repeated by the port, which follows the
 numpy engine there (ROADMAP queue 3):
@@ -32,33 +35,64 @@ def _bit31_windows(lanes):
 
 
 def _keep_windows(lanes, bad):
-    keep = np.array([(b, w) not in bad for b, w in
-                     zip(lanes.b.tolist(), lanes.w.tolist())], bool)
-    return be._lanes_take(lanes, np.nonzero(keep)[0])
+    """the indices of the lanes outside the windows `bad`"""
+    return np.array([i for i, bw in enumerate(zip(lanes.b.tolist(),
+                                                  lanes.w.tolist()))
+                     if bw not in bad], np.int64)
 
 
 def check_against_jax(tmp_path, monkeypatch, case):
     real = ds.grow_chains_device
     seen = []
+    over1 = []
+    monkeypatch.setenv("STAR_TPU_DEV_CLASSIFY_MIN", "0")
 
-    def spy(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device):
+    def compare(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device,
+                lread, read_len2, classify):
         st_j = copy.deepcopy(st)
-        want, acc, over = jds.grow_chains_device(gi, P, st_j, ws, RS, nmm,
-                                                 Lpad, s_max, chain_cap)
-        assert acc is None and over is None
-        got = real(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device)
+        want, acc_j, over_j = jds.grow_chains_device(
+            gi, P, st_j, ws, RS, nmm, Lpad, s_max, chain_cap, lread=lread,
+            read_len2=read_len2, classify=classify)
+        got, acc, over = real(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap,
+                              device, lread=lread, read_len2=read_len2,
+                              classify=classify)
+        assert acc is not None and acc_j is not None
+        assert (over is None) == (case == "pe")
         assert np.array_equal(st.fallback, st_j.fallback)
+        B = ws.n_reads
+        z = np.zeros(B, bool)
+        assert np.array_equal(z if over is None else over,
+                              z if over_j is None else over_j)
         bad = _bit31_windows(got)
         if s_max <= 31:
             assert not bad
-        assert_lanes_equal(_keep_windows(got, bad), _keep_windows(want, bad))
-        seen.append((s_max, len(got.b), len(bad)))
-        return got
+        k, k_j = _keep_windows(got, bad), _keep_windows(want, bad)
+        assert_lanes_equal(be._lanes_take(got, k), be._lanes_take(want, k_j))
+        assert np.array_equal(acc[k], acc_j[k_j])
+        return got, acc, over, len(bad)
+
+    def spy(gi, P, st, ws, RS, nmm, Lpad, s_max, chain_cap, device,
+            lread=None, read_len2=None, classify=False):
+        if case == "se":
+            # the golden's reads map to at most 10 loci: with a limit of 1
+            # the select classifies some of them over (results not used)
+            P1 = copy.copy(P)
+            P1.outFilterMultimapNmax = 1
+            n_over = compare(gi, P1, copy.deepcopy(st), ws, RS, nmm, Lpad,
+                             s_max, chain_cap, device, lread, read_len2,
+                             classify)[2].sum()
+            over1.append(int(n_over))
+        got, acc, over, n_bad = compare(gi, P, st, ws, RS, nmm, Lpad, s_max,
+                                        chain_cap, device, lread, read_len2,
+                                        classify)
+        seen.append((s_max, len(got.b), n_bad))
+        return got, acc, over
 
     monkeypatch.setattr(ds, "grow_chains_device", spy)
     prefix = _align_golden(tmp_path, "genome_idx", case)
     assert [s for s, _, _ in seen] == [be.S_MAX, 50]
     assert all(n > 0 for _, n, _ in seen)
+    assert case == "pe" or over1[0] > 0
     assert _body(prefix + "Aligned.out.sam") == \
         _body(f"{GOLD}/{case}/Aligned.out.sam")
 
