@@ -7,31 +7,39 @@ Runs from the repository root and needs one CUDA card, nvcc and g++.  Phases,
 in order; any failure ends the run with a non-zero exit and no result line:
 
   1. build   compile every CUDA source of ops/csrc/ (fetch_rows.cu, whose
-             library holds both kernels, fetch_rows and tile_fetch; one nvcc
-             per source, started together) into star_tpu_torch/_build/;
-  2. kernel  each kernel against its plain PyTorch version on the card, at
-             262,144 rows of a 128 MiB table, edges included (exact
-             equality), and timed beside its plain version, one library call
-             and its bandwidth bound;
+             library holds the window kernel behind its three launchers,
+             fetch_window, fetch_rows and tile_fetch; one nvcc per source,
+             started together) into
+             star_tpu_torch/_build/;
+  2. kernel  each kernel against its plain PyTorch version on the card
+             (exact equality), timed beside its plain version, one library
+             call and its bytes bound: fetch_window at every width of the
+             main path over 262,144 starts of a 128 MiB table, both edges,
+             starts past them and negative starts included; fetch_rows and
+             tile_fetch at 262,144 rows;
   3. golden  alignReads on cuda for the bundled se / pe goldens with the
              device stitch engine forced on every level (grow, finalize and,
              on se, the too-many-loci select): SAM (header stripped) and
-             SJ.out.tab byte-identical, grow and finalize fetch_rows
+             SJ.out.tab byte-identical, grow and finalize fetch_window
              launches > 0 on every level, reads classified over printed;
   4. full    a chr20-scale genome (40 + 20 Mb, SAi depth 12) and one
              16,384-read batch of 100 bp SE reads aligned on cuda: reads/s,
              phase split, per level the reads / seed records / engine, the
              device engine's grow, finalize, select, download and ordering
              seconds, retired against downloaded lanes, grow iterations and
-             launches, kernel launches, peak device memory (each level
-             whose grow ran on the card must have finalized there); the
-             grow sweep: each level's grow replayed from the batch's dumped
-             inputs on its first n reads, numpy engine against the card
-             (seconds, seed records, LaneStates equal), which places the
-             device-grow gate batch_engine.DEVICE_GROW_MIN_RECORDS; the
-             stitch replayed with every fetch_rows call of the grow, the
-             finalize and the pack timed by CUDA events beside its bytes
-             bound; the W512 finalize replayed, numpy finalize_lanes against
+             launches, fetch_window launches per phase (seed loop, grow,
+             finalize, pack), peak device memory (each level whose grow ran
+             on the card must have finalized there); the grow sweep: each
+             level's grow replayed from the batch's dumped inputs on its
+             first n reads, numpy engine against the card (seconds, seed
+             records, LaneStates equal), which places the device-grow gate
+             batch_engine.DEVICE_GROW_MIN_RECORDS; the seed loop and the
+             stitch replayed with every fetch_window call recorded (the
+             wrapper's host time per call) and launched again per phase: the
+             kernel's own device time (each call between its own CUDA events,
+             queued behind a sleep kernel), the old fetch_rows + cut
+             composition, the library call table.unfold(0, W, 1)[start], the
+             plain version and the bytes bound; the W512 finalize replayed, numpy finalize_lanes against
              the card (accept and extended lanes equal, both timed); 1,024
              probes held against the host MMP oracle; the first 256 reads'
              SAM against the per-read host path (--tpuUseDevice 0); and the
@@ -63,6 +71,10 @@ SWEEP = {8: (1024, 2048, 4096, 8192, 16384),   # reads replayed per level
          512: (32, 128, 512)}
 FETCH_ROWS = 262144                   # rows of one MMP neighbour fetch
 FETCH_TABLE = 128 << 20
+# the main path's fetch_window widths at 100 bp SE (SA entry, SAi pair,
+# lane rows, Lwin, QL, 2 * Lwin, RSPAN, GSPAN), the 2x150 PE genome span
+# (two rows) and the widest window
+WINDOW_WIDTHS = (4, 8, 96, 104, 128, 208, 318, 400, 724, 1172, 3072)
 DEVICE = "cuda"
 
 HBM_BW = 3.35e12                      # H100 SXM (NVIDIA data sheet), B/s
@@ -103,9 +115,88 @@ def row_bytes(torch, starts, n_rows, idx_bytes, fet, tile):
             + n_rows * idx_bytes), n_tiles
 
 
+def queued_ms(torch, items, prep, run, chunk=32):
+    """device time in ms of run(prep(item), item) over items, summed per
+    call from a pair of CUDA events just around it.  Each chunk of calls is
+    queued behind a sleep kernel, so the card runs them back to back and an
+    event pair brackets its own call's kernels, not the host's time to issue
+    them; a chunk the card caught up with is queued again behind a longer
+    sleep."""
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+    cycles, total, i = 1 << 24, 0.0, 0
+    while i < len(items):
+        part = items[i:i + chunk]
+        args = [prep(it) for it in part]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        slept = torch.cuda.Event()
+        slept.record()
+        pairs = []
+        for it, x in zip(part, args):
+            a, b = event(), event()
+            a.record()
+            run(x, it)
+            b.record()
+            pairs.append((a, b))
+        if slept.query():
+            if cycles >= 1 << 34:
+                raise RuntimeError("queued_ms: the host cannot keep ahead")
+            cycles *= 4
+            continue
+        torch.cuda.synchronize()
+        total += sum(a.elapsed_time(b) for a, b in pairs)
+        i += chunk
+    return total
+
+
+def profiler_kernels(torch, fn, match):
+    """how many kernels whose name contains `match` torch.profiler reports
+    for fn(): a check of the profiler, which has been seen to drop kernel
+    events on the H100 machines this script runs on (PERF.md)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and match in e.name)
+
+
+def window_bytes(torch, start, width, n):
+    """bytes a window fetch must move: each distinct 32-byte sector that its
+    live windows cover read once, each live window written once, 8 B per
+    start"""
+    live = start[start >= 0].clamp(max=n - width)
+    if live.numel() == 0:
+        return start.numel() * 8
+    s = torch.sort(live).values
+    a, b = s // 32, (s + width - 1) // 32
+    prev = torch.cat([b.new_full((1,), -1), torch.cummax(b, 0).values[:-1]])
+    sectors = int((b - torch.maximum(a, prev + 1) + 1).clamp(min=0).sum())
+    return sectors * 32 + live.numel() * width + start.numel() * 8
+
+
+def old_fetch_cut(torch, fetch, table, start, width):
+    """the composition fetch_window replaced: aligned fetch_rows rows (as
+    many as the width needs, FET apart, one launch) and one gather"""
+    m = fetch._rows_for(width)
+    if m == 1:
+        rows = fetch.fetch_rows(table, start)
+    else:
+        offs = start[:, None] + fetch.FET * torch.arange(m,
+                                                         device=start.device)
+        rows = fetch.fetch_rows(
+            table, offs.clamp_(max=table.numel() - fetch.FET).reshape(-1))
+        rows = rows.reshape(start.numel(), m * fetch.FET)
+    return fetch.realign(rows, start % fetch.TILE, width)
+
+
 def phase_kernel(torch, np, fetch):
     """fetch_rows kernel vs its plain version at the MMP's widest shape"""
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(0)
     raw = rng.integers(-128, 128, size=FETCH_TABLE, dtype=np.int8)
     tab = torch.from_numpy(fetch.pad_table(raw)).to(dev)
@@ -113,16 +204,17 @@ def phase_kernel(torch, np, fetch):
     off[:8] = [-1, 0, 1, 1023, 1024, FETCH_TABLE - 1, FETCH_TABLE - 1024,
                FETCH_TABLE - 2048]
     off = torch.from_numpy(off).to(dev)
+    live = off >= 0
+    want = fetch._fetch_rows_torch(tab, off)[live]
     got = fetch.fetch_rows(tab, off)
     torch.cuda.synchronize()
-    want = fetch._fetch_rows_torch(tab, off)
-    live = off >= 0
-    err = int((got[live].int() - want[live].int()).abs().max())
+    err = int((got[live].int() - want.int()).abs().max())
     del got, want
     if err != 0:
         raise AssertionError(f"fetch_rows kernel differs from plain: {err}")
     n_live = int(live.sum())
     ms = cuda_ms(lambda: fetch.fetch_rows(tab, off))
+    ms2 = cuda_ms(lambda: fetch.fetch_rows(tab, off))
     plain_ms = cuda_ms(lambda: fetch._fetch_rows_torch(tab, off))
     library_ms = cuda_ms(lambda: tab.unfold(0, 2048, 1024)[off // 1024])
     # live rows move data; every offset is read once
@@ -131,21 +223,74 @@ def phase_kernel(torch, np, fetch):
     bytes_moved = live_b + FETCH_ROWS * 8
     bound_ms = bytes_moved / HBM_BW * 1e3
     log(f"kernel fetch_rows: {FETCH_ROWS} rows ({n_live} live, {n_tiles} "
-        f"distinct tiles) of a {FETCH_TABLE >> 20} MiB table: max_abs_err 0, "
-        f"{ms:.4f} ms (plain {plain_ms:.4f}, library {library_ms:.4f}, bound "
-        f"{bound_ms:.4f} ms = {bytes_moved} B at {HBM_BW:.3g} B/s)")
+        f"distinct tiles) of a {FETCH_TABLE >> 20} MiB table: max_abs_err "
+        f"{err}, "
+        f"{ms:.4f} / {ms2:.4f} ms (plain {plain_ms:.4f}, library "
+        f"{library_ms:.4f}, bound {bound_ms:.4f} ms = {bytes_moved} B at "
+        f"{HBM_BW:.3g} B/s)")
     return {"name": "fetch_rows", "route": "cuda",
             "source": "star_tpu_torch/ops/csrc/fetch_rows.cu",
             "replaces": "star_tpu/ops/fetch.py:83",
-            "launches": None, "max_abs_err": err, "max_abs_diff": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "launches": None, "on_main_path": False,
+            "max_abs_err": err, "max_abs_diff": err,
+            "ms": ms, "ms_again": ms2,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": library_ms}
+
+
+def phase_window_kernel(torch, np, fetch):
+    """fetch_window kernel vs its plain version, byte for byte, at every
+    width of the main path: 262,144 starts over a 128 MiB table, both table
+    edges, starts past them and negative starts, each timed beside its plain
+    version, one library call and its bytes bound.  Returns (max_abs_err,
+    {width: timings})"""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(2)
+    raw = rng.integers(-128, 128, size=FETCH_TABLE, dtype=np.int8)
+    tab = torch.from_numpy(fetch.pad_table(raw)).to(dev)
+    n = tab.numel()
+    out, max_err = {}, 0
+    for width in WINDOW_WIDTHS:
+        s = rng.integers(-n // 8, n + 64, size=FETCH_ROWS)
+        s[:14] = [-1, -(1 << 40), 0, 1, 15, 17, FETCH_TABLE - 1,
+                  n - width - 1, n - width, n - width + 1, n - 1, n,
+                  1 << 40, 4096 + 9]
+        s = torch.from_numpy(s).to(dev)
+        live = s >= 0
+        got = fetch.fetch_window(tab, s, width)
+        torch.cuda.synchronize()
+        want = fetch._fetch_window_torch(tab, s, width)
+        err = int((got[live].int() - want[live].int()).abs().max())
+        del got, want
+        if err != 0:
+            raise AssertionError(f"fetch_window kernel differs from plain at "
+                                 f"width {width}: {err}")
+        max_err = max(max_err, err)
+        lc = s[live].clamp(max=n - width)
+        reps = [None] * 20
+
+        def timed(f):
+            return queued_ms(torch, reps, lambda _: None,
+                             lambda _, __: f()) / len(reps)
+        t = {"ms": timed(lambda: fetch.fetch_window(tab, s, width)),
+             "plain_ms": timed(lambda: fetch._fetch_window_torch(
+                 tab, s, width)),
+             "library_ms": timed(lambda: tab.unfold(0, width, 1)[lc])}
+        nb = window_bytes(torch, s, width, n)
+        t.update(bound_ms=nb / HBM_BW * 1e3, bytes=nb)
+        out[width] = t
+        log(f"kernel fetch_window W={width}: {FETCH_ROWS} starts "
+            f"({int(live.sum())} live) of a {FETCH_TABLE >> 20} MiB table: "
+            f"max_abs_err {err}, {t['ms']:.4f} ms (plain "
+            f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+            f"{t['bound_ms']:.4f} ms = {nb} B at {HBM_BW:.3g} B/s)")
+    return max_err, out
 
 
 def phase_tile_kernel(torch, np, tile_fetch):
     """tile_fetch kernel vs its plain version: 262,144 positions of a
     128 MiB table, both table edges included"""
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(1)
     raw = rng.integers(-128, 128, size=FETCH_TABLE, dtype=np.int8)
     tab = torch.from_numpy(tile_fetch.pad_table(raw)).to(dev)
@@ -168,7 +313,7 @@ def phase_tile_kernel(torch, np, tile_fetch):
                                      tile_fetch.FET, tile_fetch.TILE)
     bound_ms = bytes_moved / HBM_BW * 1e3
     log(f"kernel tile_fetch: {FETCH_ROWS} positions ({n_tiles} distinct "
-        f"tiles) of a {FETCH_TABLE >> 20} MiB table: max_abs_err 0, "
+        f"tiles) of a {FETCH_TABLE >> 20} MiB table: max_abs_err {err}, "
         f"{ms:.4f} ms (plain {plain_ms:.4f}, library {library_ms:.4f}, bound "
         f"{bound_ms:.4f} ms = {bytes_moved} B at {HBM_BW:.3g} B/s)")
     return {"name": "tile_fetch", "route": "cuda",
@@ -190,7 +335,7 @@ def levels(be):
 
 def check_card_levels(ds, be, label):
     """every level whose grow ran on the card finalized there too: its
-    finalize launched fetch_rows and accepted chains"""
+    finalize launched fetch_window and accepted chains"""
     gs = ds.GROW_STATS
     for w, (runs, dev) in levels(be).items():
         if dev and (gs[w, "finalize_launches"] == 0
@@ -221,13 +366,13 @@ def grow_report(ds, be, pipeline, label):
             f"iterations, {gs[w, 'steps']} steps; {gs[w, 'retired']} lanes "
             f"retired, {gs[w, 'accepted']} accepted, {gs[w, 'downloaded']} "
             f"downloaded, {gs[w, 'over']} reads over the multimap limit; "
-            f"fetch_rows launches: grow {gs[w, 'fetch_launches']}, finalize "
+            f"fetch_window launches: grow {gs[w, 'fetch_launches']}, finalize "
             f"{gs[w, 'finalize_launches']}, pack {gs[w, 'pack_launches']}")
     log(f"{label}: FB_STATS {dict(sorted(be.FB_STATS.items()))}")
 
 
 def stitch_launches(ds):
-    """fetch_rows launches of the stitch engine: {grow, finalize, pack}"""
+    """fetch_window launches of the stitch engine: {grow, finalize, pack}"""
     gs = ds.GROW_STATS
     return {k: sum(v for (w, n), v in gs.items() if n == f"{k}_launches")
             for k in ("fetch", "finalize", "pack")}
@@ -279,11 +424,11 @@ def phase_golden(fetch):
             sl = stitch_launches(ds)
             if sl["fetch"] == 0:
                 raise AssertionError(f"golden {case}: the grow launched no "
-                                     "fetch_rows")
+                                     "fetch_window")
             n_over = sum(v for (w, k), v in ds.GROW_STATS.items()
                          if k == "over")
             log(f"golden {case}: SAM and SJ.out.tab identical, "
-                f"{fetch.LAUNCHES - n0} fetch_rows launches (grow "
+                f"{fetch.LAUNCHES - n0} fetch_window launches (grow "
                 f"{sl['fetch']}, finalize {sl['finalize']}, pack "
                 f"{sl['pack']}), {n_over} reads classified over the multimap "
                 f"limit on the card, {time.time() - t0:.2f} s")
@@ -436,63 +581,134 @@ def finalize_replay(np, gi, P, d, reach, pipeline):
     return t_np, t_card
 
 
-# the stitch engine function whose fetch_rows calls are each phase's
-STITCH_PHASES = {"_finalize_rows": "finalize", "pack_rows": "pack",
-                 "grow": "grow"}
+# the function whose fetch_window calls are each phase's (found from the
+# caller's frames): the seed loop's MMP, then the stitch engine's grow,
+# finalize and pack
+FETCH_PHASES = {"mmp": "seed", "_finalize_rows": "finalize",
+                "pack_rows": "pack", "grow": "grow"}
+PHASES = ("seed", "grow", "finalize", "pack")
 
 
-def replay_stitch_fetches(torch, gi, P, d, fetch, want):
-    """the batch's stitch again from its dumped inputs, with every fetch_rows
-    call of the stitch engine timed by CUDA events and its bound computed
-    from its rows, per phase (grow, finalize, pack; found from the caller's
-    frames): the stitch engine's share of the fetch_rows kernel (the seed
-    loop's calls do not pass through fetch.fetch_rows' module attribute).
-    want: the main path's launches per phase.  Returns {phase: (launches,
-    rows, kernel ms, bound ms)}."""
-    from star_tpu_torch.ops import batch_engine as be
+def record_fetches(torch, fetch, run):
+    """run() with every fetch_window call recorded: (phase, weak reference
+    to the table, table bytes, starts, width, the wrapper's host seconds)"""
+    import weakref
     calls = []
-    real = fetch.fetch_rows
+    real = fetch.fetch_window
 
     def phase():
         f = sys._getframe(2)
         while f is not None:
-            if f.f_code.co_name in STITCH_PHASES:
-                return STITCH_PHASES[f.f_code.co_name]
+            if f.f_code.co_name in FETCH_PHASES:
+                return FETCH_PHASES[f.f_code.co_name]
             f = f.f_back
-        raise AssertionError("a fetch_rows call outside the stitch engine")
+        raise AssertionError("a fetch_window call outside the known phases")
 
-    def timed(table, off):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        rows = real(table, off)
-        b.record()
-        live = off[off >= 0]
-        nb, _ = row_bytes(torch, live, live.numel(), 0, fetch.FET, fetch.TILE)
-        calls.append((phase(), a, b, nb + off.numel() * 8, off.numel()))
-        return rows
+    def recorded(table, start, width):
+        t0 = time.perf_counter()
+        out = real(table, start, width)
+        dt = time.perf_counter() - t0
+        if start.numel():
+            calls.append((phase(), weakref.ref(table), table.numel(),
+                          start.clone(), int(width), dt))
+        return out
 
-    fetch.fetch_rows = timed
+    fetch.fetch_window = recorded
     try:
-        be.stitch_batch(gi, P, d["seeds"], d["fwd"], d["rc"], d["lread"],
-                        d["read_len2"], d["nmm_max"], lazy=True, device=DEVICE)
+        run()
         torch.cuda.synchronize()
     finally:
-        fetch.fetch_rows = real
+        fetch.fetch_window = real
+    return calls
+
+
+def time_calls(torch, fetch, calls):
+    """the recorded calls of one phase launched again back to back: the
+    window kernel's own device time (twice, before and after the rest), the
+    old composition (fetch_rows + cut), the library call
+    table.unfold(0, W, 1)[start], the plain version, and the bytes bound.
+    A table the run has freed since is stood in for by an uninitialised one
+    of the same size (the same addresses relative to its start, so the same
+    access pattern)."""
+    import collections
+    subs = collections.OrderedDict()
+
+    def table(c):
+        t = c[1]()
+        if t is None:
+            t = subs.pop(c[2], None)
+            if t is None:
+                t = torch.empty(c[2], dtype=torch.int8, device=DEVICE)
+            subs[c[2]] = t
+            while len(subs) > 12:
+                subs.popitem(last=False)
+        return t
+
+    items = [(c, c[3][c[3] >= 0].clamp(max=c[2] - c[4])) for c in calls]
+
+    def timed(f):
+        return queued_ms(torch, items, lambda it: table(it[0]),
+                         lambda t, it: f(t, *it))
+    kern = timed(lambda t, c, lc: fetch._fetch_window_cuda(t, c[3], c[4]))
+    r = {"ms": kern}
+    r["old_ms"] = timed(
+        lambda t, c, lc: old_fetch_cut(torch, fetch, t, c[3], c[4]))
+    r["library_ms"] = timed(lambda t, c, lc: t.unfold(0, c[4], 1)[lc])
+    r["plain_ms"] = timed(
+        lambda t, c, lc: fetch._fetch_window_torch(t, c[3], c[4]))
+    r["ms_again"] = timed(
+        lambda t, c, lc: fetch._fetch_window_cuda(t, c[3], c[4]))
+
+    def relaunch():
+        for c in calls:
+            fetch._fetch_window_cuda(table(c), c[3], c[4])
+    r["profiler_saw"] = profiler_kernels(torch, relaunch, "window_kernel")
+    nb = sum(window_bytes(torch, c[3], c[4], c[2]) for c in calls)
+    r["bound_ms"] = nb / HBM_BW * 1e3
+    r["bytes"] = nb
+    r["launches"] = len(calls)
+    r["rows"] = sum(c[3].numel() for c in calls)
+    r["widths"] = sorted({c[4] for c in calls})
+    r["host_us_per_call"] = sum(c[5] for c in calls) / len(calls) * 1e6
+    return r
+
+
+def replay_fetches(torch, np, gi, P, d, fetch, want):
+    """the batch's seed loop and stitch again from its dumped inputs, with
+    every fetch_window call recorded and then timed per phase (seed loop,
+    grow, finalize, pack) by time_calls.  want: the main path's launches per
+    phase, which the replay must repeat.  Returns {phase: timings}."""
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import pipeline
+    di = gi._device_cache[next(k for k in gi._device_cache
+                               if k[0] != "stitch")]
+    D = int(getattr(gi, "sa_sparse_d", 1)) or 1
+    put = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=DEVICE)
+
+    def run():
+        pipeline.make_fused_seed_fn(di, D)(
+            torch.as_tensor(d["read_mat"], device=DEVICE),
+            *[put(a) for a in d["chains"]], int(P.seedMapMin))
+        be.stitch_batch(gi, P, d["seeds"], d["fwd"], d["rc"], d["lread"],
+                        d["read_len2"], d["nmm_max"], lazy=True,
+                        device=DEVICE)
+    calls = record_fetches(torch, fetch, run)
     out = {}
-    for ph in ("grow", "finalize", "pack"):
+    for ph in PHASES:
         cs = [c for c in calls if c[0] == ph]
         if len(cs) != want[ph]:
-            raise AssertionError(f"stitch replay: {len(cs)} {ph} fetch_rows "
+            raise AssertionError(f"fetch replay: {len(cs)} {ph} fetch_window "
                                  f"calls, the main path made {want[ph]}")
-        kern_ms = sum(a.elapsed_time(b) for _, a, b, _, _ in cs)
-        nbytes = sum(c[3] for c in cs)
-        rows = sum(c[4] for c in cs)
-        bound_ms = nbytes / HBM_BW * 1e3
-        out[ph] = (len(cs), rows, kern_ms, bound_ms)
-        log(f"full: the {ph}'s fetch_rows calls (replayed): {len(cs)} "
-            f"launches, {rows} rows, kernel {kern_ms:.3f} ms, bound "
-            f"{bound_ms:.3f} ms ({nbytes} B at {HBM_BW:.3g} B/s)")
+        r = out[ph] = time_calls(torch, fetch, cs)
+        log(f"full: the {ph}'s fetch_window calls (replayed): {r['launches']} "
+            f"launches, {r['rows']} rows, widths {r['widths']}: kernel "
+            f"{r['ms']:.3f} / {r['ms_again']:.3f} ms (torch.profiler saw "
+            f"{r['profiler_saw']} of its {r['launches']} kernels), "
+            f"bound {r['bound_ms']:.3f} ms ({r['bytes']} B at "
+            f"{HBM_BW:.3g} B/s), library {r['library_ms']:.3f} ms, old "
+            f"fetch_rows + cut {r['old_ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms; wrapper host "
+            f"{r['host_us_per_call']:.1f} us per call")
     return out
 
 
@@ -539,6 +755,7 @@ def phase_full(torch, np, fetch, data_proc, data):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fetch.LAUNCHES = 0                           # counts of the main path
+    fetch.ROWS_LAUNCHES = 0
     tile_fetch.LAUNCHES = 0
     t0 = time.time()
     try:
@@ -547,22 +764,27 @@ def phase_full(torch, np, fetch, data_proc, data):
     finally:
         del os.environ["STAR_TPU_DUMP_STITCH"]
     wall = time.time() - t0
-    launches = {"fetch_rows": fetch.LAUNCHES,
+    launches = {"fetch_window": fetch.LAUNCHES,
+                "fetch_rows": fetch.ROWS_LAUNCHES,
                 "tile_fetch": tile_fetch.LAUNCHES}
     pipeline.TIMING = False
     peak = torch.cuda.max_memory_allocated()
     sl = stitch_launches(ds)
-    if launches["fetch_rows"] == 0:
-        raise AssertionError("full: fetch_rows never launched")
+    per_phase = {"seed": launches["fetch_window"] - sum(sl.values()),
+                 "grow": sl["fetch"], "finalize": sl["finalize"],
+                 "pack": sl["pack"]}
+    if min(per_phase["seed"], per_phase["grow"], per_phase["finalize"]) <= 0:
+        raise AssertionError(f"full: a phase never launched fetch_window: "
+                             f"{per_phase}")
     if stats.read_n != N_READS:
         raise AssertionError(f"full: {stats.read_n} reads aligned, "
                              f"expected {N_READS}")
     log(f"full: {N_READS} reads in {wall:.2f} s = {N_READS / wall:.1f} "
-        f"reads/s (index upload included); fetch_rows launches "
-        f"{launches['fetch_rows']} (seed loop "
-        f"{launches['fetch_rows'] - sum(sl.values())}, grow {sl['fetch']}, "
-        f"finalize {sl['finalize']}, pack {sl['pack']}); peak device memory "
-        f"{peak} B")
+        f"reads/s (index upload included); fetch_window launches "
+        f"{launches['fetch_window']} (seed loop {per_phase['seed']}, grow "
+        f"{sl['fetch']}, finalize {sl['finalize']}, pack {sl['pack']}), "
+        f"fetch_rows {launches['fetch_rows']}, tile_fetch "
+        f"{launches['tile_fetch']}; peak device memory {peak} B")
     log(f"full: phases {pipeline.timing_report()}")
     grow_report(ds, be, pipeline, "full")
     check_card_levels(ds, be, "full")
@@ -582,10 +804,8 @@ def phase_full(torch, np, fetch, data_proc, data):
     d = load_dump(gi, P, os.path.join(dump, sorted(os.listdir(dump))[0]))
     reach = level_reach(np, gi, P, d)
     replay = {"sweep": grow_sweep(np, gi, P, d, reach),
-              "fetches": replay_stitch_fetches(
-                  torch, gi, P, d, fetch, {"grow": sl["fetch"],
-                                           "finalize": sl["finalize"],
-                                           "pack": sl["pack"]}),
+              "fetches": replay_fetches(torch, np, gi, P, d, fetch,
+                                        per_phase),
               "finalize": finalize_replay(np, gi, P, d, reach, pipeline)}
     del d
 
@@ -691,12 +911,25 @@ def main():
                         or "spill" in line:
                     log(f"build: {k}: " + line.strip())
 
+        win_err, widths = phase_window_kernel(torch, np, fetch)
         kern = [phase_kernel(torch, np, fetch),
                 phase_tile_kernel(torch, np, tile_fetch)]
         phase_golden(fetch)
-        launches, _ = phase_full(torch, np, fetch, data_proc, data)
+        launches, replay = phase_full(torch, np, fetch, data_proc, data)
         for k in kern:
             k["launches"] = launches[k["name"]]
+        ph = replay["fetches"]
+        kern.insert(0, {
+            "name": "fetch_window", "route": "cuda",
+            "source": "star_tpu_torch/ops/csrc/fetch_rows.cu",
+            "replaces": "star_tpu/ops/fetch.py:83",
+            "launches": launches["fetch_window"], "max_abs_err": win_err,
+            # the main path's calls, all phases, launched again back to back
+            **{k: sum(r[k] for r in ph.values())
+               for k in ("ms", "ms_again", "plain_ms", "bound_ms",
+                         "library_ms", "old_ms")},
+            "bound_by": "bytes", "phases": ph,
+            "widths_262144_starts": widths})
     finally:
         if data_proc is not None and data_proc.poll() is None:
             data_proc.kill()

@@ -5,8 +5,9 @@ Same layout and module names as star_tpu, which stays the reference the port
 is tested against:
   * genome/, align/, io/, params, stats, constants: host stages, copied
     unchanged from star_tpu (the port imports nothing of star_tpu);
-  * ops/fetch.py + ops/csrc/fetch_rows.cu: the aligned row-fetch kernel
-    that serves every random access of the suffix-array search;
+  * ops/fetch.py + ops/csrc/fetch_rows.cu: the byte-window fetch kernel
+    that serves every random access of the suffix-array search and the
+    device stitch engine;
   * ops/sa_search.py: batched MMP search over device-resident index tensors;
   * ops/pipeline.py: the seed loop on the device, DeviceAligner;
   * ops/batch_engine.py: the numpy windows/stitch/extend engine;

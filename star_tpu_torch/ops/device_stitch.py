@@ -27,13 +27,13 @@ Design:
     selected rows together, so one download carries only the lanes the host
     assembly reads.  Paired-end runs download every retired lane with its
     accept flag, because the host's PE-overlap check runs after the grow.
-  * The window layer is the JAX engine's fetch layer: every per-lane window
-    (the read region, two genome regions, the u16 mismatch-cap table) and
-    every lane-row move is cut from aligned 2 KiB rows of fetch.fetch_rows,
-    which on a CUDA tensor is the hand-written kernel ops/csrc/fetch_rows.cu
-    and on a CPU tensor its plain version.  The JAX engine's gather layer
-    (plain per-window gathers, what star_tpu runs off the TPU) is not
-    ported.
+  * The window layer: every per-lane region (the read region, two genome
+    regions, the u16 mismatch-cap table) and every lane-row move is one
+    byte window of fetch.fetch_window, which on a CUDA tensor is the
+    hand-written kernel ops/csrc/fetch_rows.cu and on a CPU tensor its plain
+    version.  The JAX engine fetches aligned 2 KiB rows and cuts the window
+    out of them (a TPU DMA constraint); its gather layer (plain per-window
+    gathers, what star_tpu runs off the TPU) is not ported.
   * Genome positions are int32: the engine is gated on n_genome < 2^30.
   * The reference's float mismatch caps (outFilterMismatchNoverLmax * len
     in double) are exact host-precomputed integer floor/ceil tables, and
@@ -42,7 +42,7 @@ Design:
 Dropped from the JAX engine because they only served the TPU: the
 optimization barrier around window gathers (_barrier), the barrel shifter
 _shift_cut (one gather here), the FET + TILE zero concatenation of every
-_rowcopy (the lane blocks are allocated once with that slack), the _ABLATE
+_rowcopy (a row move is one window of the lane's own bytes), the _ABLATE
 profiling switches, power-of-two shape ladders and buckets (pair, read and
 download counts are exact here), the id()-keyed engine and table caches
 (there is no jit; device tables live on the index object) and the classify
@@ -80,14 +80,33 @@ I32 = torch.int32
 # counters of the process, keyed (window cap W of the level, name): grow
 # "calls", "iterations" (chunks), "steps"; "retired" chains, "accepted" by
 # the finalize, "downloaded" lanes, reads classified "over" the multimap
-# limit; and the fetch_rows launches of the grow ("fetch_launches"), the
+# limit; and the fetch kernel's launches of the grow ("fetch_launches"), the
 # finalize ("finalize_launches") and the pack ("pack_launches")
 GROW_STATS = collections.Counter()
 
 
+def region_spans(Lpad: int):
+    """(read span, genome span) of the per-lane fetch regions of one chunk:
+    the widest column any window of _stitch_chunk cuts from them.  The JAX
+    engine's GSPAN = 2*Lpad+520 misses the flush-right insertion window
+    (3*Lpad+262) once Lpad > 258."""
+    return 3 * Lpad + 12, max(2 * Lpad + 520, 3 * Lpad + 263)
+
+
+# the widest region the engine fetches: the genome span at the longest read
+# a run admits (two mates of readSeqLengthMax = 650 bases and the spacer,
+# Lpad = 1303); _prep_table pads every table's tail by at least this much
+SPAN_MAX = region_spans(2 * 650 + 1 + 2)[1]
+
+
 def _prep_table(raw_bytes: np.ndarray) -> np.ndarray:
+    """FRONT_PAD zero bytes, the table, and at least SPAN_MAX bytes of tail
+    padding, so a window that starts at a real byte never reaches the end of
+    the table (where fetch_window would clamp it)"""
     b = np.ascontiguousarray(raw_bytes).view(np.int8).ravel()
-    return fetch.pad_table(np.concatenate([np.zeros(FRONT_PAD, np.int8), b]))
+    tail = np.full(max(SPAN_MAX - FET, 0), 5, np.int8)
+    return fetch.pad_table(np.concatenate([np.zeros(FRONT_PAD, np.int8), b,
+                                           tail]))
 
 
 # ---- SCAL block column layout (per-lane scalars, int32)
@@ -177,14 +196,6 @@ def mm_cap_tables(p_mm: float, tl_max: int):
     return floor_tab, ceil_tab
 
 
-def region_spans(Lpad: int):
-    """(read span, genome span) of the per-lane fetch regions of one chunk:
-    the widest column any window of _stitch_chunk cuts from them.  The JAX
-    engine's GSPAN = 2*Lpad+520 misses the flush-right insertion window
-    (3*Lpad+262) once Lpad > 258."""
-    return 3 * Lpad + 12, max(2 * Lpad + 520, 3 * Lpad + 263)
-
-
 # --------------------------------------------------------------------------
 # window layer
 # --------------------------------------------------------------------------
@@ -201,22 +212,16 @@ def _cut(x, col0, width):
 
 def _fetch_region(tabf, byte_off, span):
     """[A, span] uint8 region starting at logical byte_off of a _prep_table'd
-    table (the front pad absorbs offsets down to -FRONT_PAD, so the position
-    <-> column mapping is exact).  A span wider than one 2 KiB row allows
-    (TILE + 1 bytes from any alignment) takes further rows, 2 KiB apart, in
-    the same fetch_rows launch.  Each row start is clamped into the table;
-    a row holding any real byte (below the table's unpadded end) never is,
-    so clamping touches only junk lanes and bytes the callers mask."""
-    n = tabf.numel()
-    m = _ceil_div(TILE - 1 + span, FET)
-    off = (byte_off.long() + FRONT_PAD).clamp_(0, n - FET)
-    if m == 1:
-        rows = fetch.fetch_rows(tabf, off)
-    else:
-        offs = off[:, None] + FET * torch.arange(m, device=off.device)
-        rows = fetch.fetch_rows(tabf, offs.clamp_(max=n - FET).reshape(-1))
-        rows = rows.reshape(off.shape[0], m * FET)
-    return _cut(rows.view(torch.uint8), off % TILE, span)
+    table: one fetch_window launch (the front pad absorbs offsets down to
+    -FRONT_PAD, so the position <-> column mapping is exact).  Starts below
+    the table clamp to 0 and starts past it to its end; since the tail
+    padding holds SPAN_MAX bytes, a window that starts at a real byte is
+    never clamped, so clamping touches only junk lanes the callers mask."""
+    if span > SPAN_MAX:
+        raise ValueError(f"fetch region of {span} bytes exceeds the tables' "
+                         f"tail padding ({SPAN_MAX})")
+    start = (byte_off.long() + FRONT_PAD).clamp_(min=0)
+    return fetch.fetch_window(tabf, start, span).view(torch.uint8)
 
 
 def _gcut(region, col0, width, g0, n_g, g_first, g_last):
@@ -846,20 +851,21 @@ def _stitch_chunk(cfg: StitchConfig, Gf, n_g, RSf, lmax,
 
 def _alloc_rows(n: int, C: int, dev):
     """an [n, C] int32 row matrix and the int8 table that backs it: 16-byte
-    aligned, a multiple of 1024 bytes, with FET + TILE bytes of slack past
-    the last row, so the table is a valid fetch_rows table as it is"""
-    nb = _round_up(n * C * 4 + FET + TILE, TILE)
+    aligned, a multiple of 1024 bytes and at least FET, so the table is a
+    valid fetch table as it is (a row move reads whole rows, never past the
+    last)"""
+    nb = _round_up(max(n * C * 4, FET), TILE)
     tab = torch.zeros(nb, dtype=torch.int8, device=dev)
     return tab[:n * C * 4].view(I32).view(n, C), tab
 
 
 def _rowcopy(M, tab, idx):
     """M[idx] for an int32 row matrix backed by the fetch table tab: one
-    aligned fetch_rows row per lane, the lane's bytes cut out of it"""
+    fetch_window of the row's bytes per lane.  The rows are 96 or 400 bytes,
+    multiples of 16, so the kernel's output is dense and views as int32."""
     rb = M.shape[1] * 4
-    off = idx.long() * rb
-    rows = fetch.fetch_rows(tab, off)
-    return _cut(rows, off % TILE, rb).view(I32)
+    assert rb % 16 == 0, rb
+    return fetch.fetch_window(tab, idx.long() * rb, rb).view(I32)
 
 
 def make_grow_engine2(cfg: StitchConfig, AMAX: int, RMAX: int, A_CAP: int,
@@ -1315,7 +1321,7 @@ def select_lanes(ctx, SC, EX, accept, pm, rng_mm: int, nmax_mm: int):
 
 def pack_rows(blocks, tables, idx):
     """the rows idx of the three retired blocks, moved together through
-    fetch_rows (JAX make_pack_engine)"""
+    fetch_window (JAX make_pack_engine)"""
     return [_rowcopy(M, tab, idx) for M, tab in zip(blocks, tables)]
 
 

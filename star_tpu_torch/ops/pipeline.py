@@ -38,7 +38,8 @@ MAXP = 64  # probes per chain cap (matches the round-1 64-round cap)
 # engine's parts dev_upload_W<w>, dev_grow_W<w>, dev_finalize_W<w>,
 # dev_select_W<w>, dev_download_W<w> (with the pack) and dev_order_W<w>
 # (the host's DFS ordering of the downloaded chains).
-# STAR_TPU_DUMP_STITCH=<dir> pickles each batch's stitch inputs there.
+# STAR_TPU_DUMP_STITCH=<dir> pickles each batch's stitch inputs there, with
+# the read matrix and chain descriptors its seed loop ran on.
 import collections as _collections
 import os as _os
 import time as _time
@@ -219,7 +220,9 @@ class DeviceAligner:
                 with open(f"{dump_dir}/batch_{nb:04d}.pkl", "wb") as f:
                     pickle.dump(dict(seeds=seed_flat, fwd=fwd, rc=rc,
                                      lread=lread, read_len2=read_len2,
-                                     nmm_max=nmm_max), f)
+                                     nmm_max=nmm_max, read_mat=read_mat,
+                                     chains=(c_read, c_pstart, c_plen, c_dir,
+                                             c_istl)), f)
             with _tick("stitch_batch"):
                 fb, results = be.stitch_batch(self.gi, P, seed_flat, fwd, rc,
                                               lread, read_len2, nmm_max,

@@ -1,4 +1,4 @@
-"""Batched MMP seed search on the device (PyTorch + the fetch_rows kernel).
+"""Batched MMP seed search on the device (PyTorch + the fetch_window kernel).
 
 Thousands of (read, start, direction) probes are resolved per call: SAi
 prefix descent, then binary search over the suffix array of the doubled text
@@ -7,8 +7,9 @@ cases (see genome/fasta.py build_t2).  Results are bit-identical to the host
 reference (align.seed.mmp_search) and to star_tpu.ops.sa_search; tests
 enforce this.
 
-Every random access goes through ops.fetch.fetch_rows: the packed SAi entry
-(value and flag bits in one int32), the SA row and the suffix text window.
+Every random access is one byte window of ops.fetch.fetch_window, called
+through the module attribute: the packed SAi pair (value and flag bits in one
+int32 each, 8 bytes), the SA row (4 bytes) and the suffix text (QL bytes).
 Each search loop is a Python ``while`` that runs until every lane has
 converged, so the typical SAi-narrowed bisection ends in a few steps.
 
@@ -29,8 +30,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .fetch import (TILE, extract_i32, fetch_rows, pad_table, realign,
-                    resolve_device)
+from . import fetch
+from .fetch import TILE, pad_table, resolve_device
 
 _VAL_MASK = 0x3FFFFFFF   # packed SAi: low 30 bits = value
 _NBIT = 1 << 30          # bit 30 = prefix crosses an N/spacer
@@ -106,12 +107,11 @@ def make_mmp_fn(di: DeviceIndex):
         return lcp, has & (gc < qc)
 
     def suffix_window(rows, run):
-        """SA rows -> realigned suffix byte windows [B, QL]"""
-        sbyte = rows * 4
-        srows = fetch_rows(saf, torch.where(run, sbyte, -1))
-        pos = extract_i32(srows, sbyte % TILE).long()
-        trows = fetch_rows(t2f, torch.where(run, pos, -1))
-        return realign(trows, pos % TILE, QL)
+        """SA rows -> suffix byte windows [B, QL]; lanes not in run are
+        skipped (junk)"""
+        sa = fetch.fetch_window(saf, torch.where(run, rows * 4, -1), 4)
+        pos = sa.view(torch.int32)[:, 0].long()
+        return fetch.fetch_window(t2f, torch.where(run, pos, -1), QL)
 
     def lower_bound(qpad, qlen, lo, hi):
         """first row in [lo0, hi0) whose suffix >= query; the loop runs
@@ -154,10 +154,12 @@ def make_mmp_fn(di: DeviceIndex):
         v1, v2, off = z, z, z
         while bool((~done).any()):
             off_n = lvl_start[lind - 1] + ind
-            rows = fetch_rows(saif, torch.where(done, -1, off_n * 4))
-            rb = (off_n * 4) % TILE
-            v1 = torch.where(done, v1, extract_i32(rows, rb).long())
-            v2 = torch.where(done, v2, extract_i32(rows, rb + 4).long())
+            # entries off_n and off_n + 1; the four bytes of each are
+            # reinterpreted, so "prefix absent" stays in the sign bit
+            pair = fetch.fetch_window(saif, torch.where(done, -1, off_n * 4),
+                                      8).view(torch.int32)
+            v1 = torch.where(done, v1, pair[:, 0].long())
+            v2 = torch.where(done, v2, pair[:, 1].long())
             off = torch.where(done, off, off_n)
             absent = v1 < 0
             step = ~done & absent & (lind > 1)

@@ -10,21 +10,22 @@ positions, ``batch`` a multiple of ``blk``, and no position is skipped
 Valid positions satisfy ``0 <= pos`` and ``align1024(pos) + FET <=
 len(table)`` (``pad_table`` leaves room for every position below the raw
 length).  On the TPU a position outside that range faults the DMA; here the
-row start is clamped into ``[0, len(table) - FET]``, as fetch_rows.cu does,
-so any position reads inside the table.
+row start is clamped into ``[0, len(table) - FET]``, as the kernel does, so
+any position reads inside the table.
 
-On a CUDA tensor ``fetch`` launches the hand-written Hopper kernel
-``tile_fetch_launch`` of ``csrc/fetch_rows.cu`` (fetch_rows' row copy with
-int32 positions and no skip); on a CPU tensor it takes the plain PyTorch
-version ``_tile_fetch_torch``.  A build or launch failure raises.  The module
-has no caller on the alignment path, as its TPU counterpart has none.
+On a CUDA tensor ``fetch`` launches ``tile_fetch_launch`` of
+``csrc/fetch_rows.cu``: the byte-window copy of ``fetch.fetch_window`` at
+width FET from the aligned start, with int32 positions and no skip (16-byte
+vector loads kept in L2, streaming stores); on a CPU tensor it takes the
+plain PyTorch version ``_tile_fetch_torch``.  A build or launch failure
+raises.  The module has no caller on the alignment path, as its TPU
+counterpart has none.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from . import fetch as _fetch
 from .fetch import FET, TILE, _fetch_rows_torch, pad_table  # noqa: F401
 
 LAUNCHES = 0     # kernel launches of tile_fetch (CUDA tensors only)
@@ -38,36 +39,14 @@ def _tile_fetch_torch(table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 def _tile_fetch_cuda(table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
-    n = table.numel()
     out = torch.empty((pos.numel(), FET), dtype=torch.int8,
                       device=table.device)
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    lib = _lib()
-    rc = lib.tile_fetch_launch(table.data_ptr(), n, pos.data_ptr(),
-                               pos.numel(), out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("tile_fetch kernel launch failed: "
-                           + lib.fetch_rows_error_string(rc).decode())
-    LAUNCHES += 1
+    if pos.numel():
+        _fetch._raise_on(_fetch._lib().tile_fetch_launch(
+            table.data_ptr(), table.numel(), pos.data_ptr(), pos.numel(),
+            out.data_ptr(), _fetch._stream(table)), "tile_fetch")
+        LAUNCHES += 1
     return out
-
-
-_LIB = None
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        from . import _build
-        lib = _build.load("fetch_rows")
-        lib.tile_fetch_launch.restype = ctypes.c_int
-        lib.tile_fetch_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p]
-        lib.fetch_rows_error_string.restype = ctypes.c_char_p
-        lib.fetch_rows_error_string.argtypes = [ctypes.c_int]
-        _LIB = lib
-    return _LIB
 
 
 def make_tile_fetch(t2_padded: torch.Tensor, batch: int, blk: int = 32):

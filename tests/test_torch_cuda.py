@@ -1,5 +1,6 @@
 """Tests of star_tpu_torch that need an NVIDIA GPU: the hand-written CUDA
-kernels against their plain PyTorch versions, the MMP search on the card
+kernels (fetch_window, fetch_rows, tile_fetch) against their plain PyTorch
+versions, the MMP search on the card
 against the host oracle, the device grow on the card against the numpy
 grow, and the device finalize, select and pack on the card against the same
 engine on CPU tensors.  They skip where no card is present.  This file
@@ -36,10 +37,10 @@ def test_fetch_rows_kernel_matches_plain(cuda, n_raw, rows):
     off = rng.integers(-n_raw // 8, n_raw, size=rows)
     off[:6] = [-1, 0, 1023, 1024, n_raw - 1, (n_raw // 1024) * 1024 - 1]
     off = torch.from_numpy(off).to(cuda)
-    n0 = fetch.LAUNCHES
+    n0 = fetch.ROWS_LAUNCHES
     got = fetch.fetch_rows(tab, off)
     torch.cuda.synchronize()
-    assert fetch.LAUNCHES == n0 + 1
+    assert fetch.ROWS_LAUNCHES == n0 + 1
     want = fetch._fetch_rows_torch(tab, off)
     live = off >= 0
     assert torch.equal(got[live], want[live])
@@ -56,6 +57,65 @@ def test_fetch_rows_kernel_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError):
         fetch.fetch_rows(tab, off.cpu())            # offsets on another device
     assert fetch.fetch_rows(tab, off[:0]).shape == (0, fetch.FET)
+
+
+# the main path's windows (MMP 4, 8, QL; lane rows 96, 400; Lwin, 2 * Lwin,
+# RSPAN, GSPAN at 100 bp), a two-row span and the widest window
+WIDTHS = [4, 8, 96, 104, 128, 208, 318, 400, 724, 1172, 3072]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", WIDTHS)
+def test_window_kernel_matches_plain(cuda, width):
+    n_raw, rows = 3_000_001, 65_536
+    rng = np.random.default_rng(width)
+    raw = rng.integers(-128, 128, size=n_raw, dtype=np.int8)
+    tab = torch.from_numpy(fetch.pad_table(raw)).to(cuda)
+    n = tab.numel()
+    s = rng.integers(-n // 8, n + 64, size=rows)
+    s[:12] = [-1, 0, 1, 15, 17, n_raw - 1, n - width - 1, n - width,
+              n - width + 1, n - 1, n, 1 << 40]
+    s = torch.from_numpy(s).to(cuda)
+    n0 = fetch.LAUNCHES
+    got = fetch.fetch_window(tab, s, width)
+    torch.cuda.synchronize()
+    assert fetch.LAUNCHES == n0 + 1
+    assert got.shape == (rows, width) and got.stride(0) % 16 == 0
+    want = fetch._fetch_window_torch(tab, s, width)
+    live = s >= 0
+    assert torch.equal(got[live], want[live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8, 24, 100, 318, 2053])
+def test_window_kernel_every_residue(cuda, width):
+    """a start in each of the 16 byte residues of a 16-byte vector, across a
+    1 KiB tile edge and at the table's last bytes"""
+    raw = np.arange(50_000, dtype=np.int64).astype(np.int8)
+    tab = torch.from_numpy(fetch.pad_table(raw)).to(cuda)
+    s = np.concatenate([1008 + np.arange(32), 7 * 1024 - 8 + np.arange(16),
+                        tab.numel() - width - 16 + np.arange(17)])
+    s = torch.from_numpy(s).to(cuda)
+    got = fetch.fetch_window(tab, s, width)
+    want = torch.stack([tab[i:i + width] for i in s.tolist()])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_window_kernel_refuses_bad_inputs(cuda):
+    tab = torch.from_numpy(fetch.pad_table(np.zeros(50_000, np.int8))).to(cuda)
+    s = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        fetch.fetch_window(tab, s.int(), 8)                  # int32 starts
+    with pytest.raises(ValueError):
+        fetch.fetch_window(tab.view(torch.uint8), s, 8)      # uint8 table
+    with pytest.raises(ValueError):
+        fetch.fetch_window(tab[1:1 + 16 * 1024], s, 8)       # misaligned
+    with pytest.raises(ValueError):
+        fetch.fetch_window(tab, s, fetch.WINDOW_MAX + 1)     # over the padding
+    with pytest.raises(ValueError):
+        fetch.fetch_window(tab[:3 * 1024], s, 1100)          # over the table
+    assert fetch.fetch_window(tab, s[:0], 96).shape == (0, 96)
 
 
 @pytest.mark.cuda
@@ -112,7 +172,7 @@ def test_tile_fetch_kernel_matches_plain(cuda):
     ("pe", ["reads_pe_1.fastq", "reads_pe_2.fastq"])])
 def test_device_grow_on_card_matches_numpy(cuda, tmp_path, monkeypatch, case,
                                            reads):
-    """the grow on the card (through the fetch_rows kernel) gives the numpy engine's LaneStates on every level, and the goldens"""
+    """the grow on the card (through the fetch_window kernel) gives the numpy engine's LaneStates on every level, and the goldens"""
     import copy
     from star_tpu_torch.genome.index import GenomeIndex
     from star_tpu_torch.ops import batch_engine as be
@@ -178,7 +238,7 @@ def test_device_finalize_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """the se golden's level-0 grow, finalize and select on the card equal
     the same engine on CPU tensors (every retired lane without the select,
     the downloaded lanes with it), with the finalize's and the pack's
-    fetch_rows launches counted"""
+    fetch_window launches counted"""
     import copy
     import pickle
     from star_tpu_torch.genome.index import GenomeIndex
