@@ -43,10 +43,31 @@ in order; any failure ends the run with a non-zero exit and no result line:
              the card (accept and extended lanes equal, both timed); 1,024
              probes held against the host MMP oracle; the first 256 reads'
              SAM against the per-read host path (--tpuUseDevice 0); and the
-             whole batch aligned again with the numpy engine
-             (STAR_TPU_DEVICE_STITCH=0): SAM and SJ.out.tab byte-identical.
+             first 4,096 reads aligned again with the numpy engine
+             (STAR_TPU_DEVICE_STITCH=0): their SAM lines byte-identical
+             (phase 5 holds the whole batch against the numpy engine);
+  5. annot   the annotation, two-pass and output layer on cuda: the goldens
+             se_gtf, se_quant, se_trsam, se_bam and se_2pass with the device
+             stitch engine forced on every level (SAM, SJ.out.tab,
+             ReadsPerGene.out.tab identical, BAMs record for record; each
+             case's fetch_window launches and the lanes whose junction lookup
+             on the card found an annotated junction); then the full batch
+             on the chr20-scale index with a synthetic annotation (the
+             generator's planted genes and 1,000 eleven-exon genes at random
+             loci outside the reads' region, ~10,000 junctions) given at
+             mapping time, --twopassMode Basic, --quantMode TranscriptomeSAM
+             GeneCounts, both BAMs and --sjdbInsertSave All: seconds of each
+             insertion (and whether the native rank merge or the full
+             re-sort ran), of each _pristine, of each pass (reads/s,
+             fetch_window launches, junctions in its index, peak device
+             memory) and of the host stages (pipeline.TIMERS sjdb_insert,
+             pristine, bam_encode, quant, bam_finish); SJ.out.tab, both BAMs,
+             ReadsPerGene.out.tab and the transcriptome BAM identical to a run
+             of the same reads and flags with the numpy engine on the index
+             pass 2 mapped against.
 
-Then one JSON line of kernel measurements, the card's name and power limit
+Then one JSON line of kernel measurements (launches: those of phase 4's
+batch and of phase 5's two-pass run), the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}.
 Generated data, the index and outputs stay under star_tpu_torch/_build/.
 """
@@ -67,8 +88,9 @@ SAI_NBASES = 12                       # bench.py's reference SAi depth
 N_READS = 16384                       # one full tpuBatchSize batch
 N_PROBES = 1024
 N_HOST_READS = 256
-SWEEP = {8: (1024, 2048, 4096, 8192, 16384),   # reads replayed per level
-         512: (32, 128, 512)}
+N_NUMPY_READS = 4096                  # phase 4's numpy-engine rerun
+SWEEP = {8: (4096, 8192, 16384),   # reads replayed per level
+         512: (128, 512)}
 FETCH_ROWS = 262144                   # rows of one MMP neighbour fetch
 FETCH_TABLE = 128 << 20
 # the main path's fetch_window widths at 100 bp SE (SA entry, SAi pair,
@@ -857,13 +879,16 @@ def phase_full(torch, np, fetch, data_proc, data):
     log(f"full: first {N_HOST_READS} reads' SAM ({len(host_lines)} lines) "
         f"identical to --tpuUseDevice 0 ({time.time() - t0:.1f} s)")
 
-    # ---- the whole batch again with the numpy engine on every level
+    # ---- the batch's first reads again with the numpy engine on every level
+    # (phase 5 holds the whole batch against the numpy engine)
     os.environ["STAR_TPU_DEVICE_STITCH"] = "0"
     pipeline.TIMING = True
     pipeline.TIMERS.clear()
+    argv_np = argv[:argv.index("--readMapNumber")] + [
+        "--readMapNumber", str(N_NUMPY_READS), "--tpuBatchSize", str(N_READS)]
     t0 = time.time()
     try:
-        align_reads(Parameters(argv), gi=gi, device=DEVICE)
+        align_reads(Parameters(argv_np), gi=gi, device=DEVICE)
     finally:
         del os.environ["STAR_TPU_DEVICE_STITCH"]
         pipeline.TIMING = False
@@ -871,16 +896,332 @@ def phase_full(torch, np, fetch, data_proc, data):
     log("full: numpy-engine run: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in sorted(pipeline.TIMERS.items())
         if k.startswith(("grow_", "finalize_", "stitch_level_"))))
-    for f in ("Aligned.out.sam", "SJ.out.tab"):
-        with open(out + f, "rb") as a, open(out + f + ".device", "rb") as b_:
-            if a.read() != b_.read():
-                raise AssertionError(f"full: {f} of the device engine "
-                                     "differs from the numpy engine")
-    log(f"full: SAM and SJ.out.tab byte-identical to the numpy-engine run "
-        f"of the same batch (device engine {wall:.2f} s = "
-        f"{N_READS / wall:.1f} reads/s, numpy engine {wall_np:.2f} s = "
-        f"{N_READS / wall_np:.1f} reads/s)")
+    names = {n for n, _ in recs[:N_NUMPY_READS]}
+    dev_lines = [l for l in strip_header(out + "Aligned.out.sam.device")
+                 if l.split("\t", 1)[0] in names]
+    np_lines = strip_header(out + "Aligned.out.sam")
+    if dev_lines != np_lines or not np_lines:
+        raise AssertionError("full: SAM of the device engine differs from "
+                             "the numpy engine")
+    log(f"full: the first {N_NUMPY_READS} reads' SAM ({len(np_lines)} lines) "
+        f"byte-identical to the numpy-engine run of them (device engine "
+        f"{wall:.2f} s = {N_READS / wall:.1f} reads/s for the batch, numpy "
+        f"engine {wall_np:.2f} s = {N_NUMPY_READS / wall_np:.1f} reads/s)")
     return launches, replay
+
+
+def bam_records(path):
+    """the reference names of a BAM file's header and its records, from the
+    decompressed stream (BGZF block boundaries are not compared)"""
+    import gzip
+    import struct
+    with open(path, "rb") as f:
+        data = gzip.decompress(f.read())
+    if data[:4] != b"BAM\x01":
+        raise AssertionError(f"{path}: not a BAM file")
+    off = 8 + struct.unpack("<i", data[4:8])[0]
+    n_ref = struct.unpack("<i", data[off:off + 4])[0]
+    off += 4
+    refs = []
+    for _ in range(n_ref):
+        ln = struct.unpack("<i", data[off:off + 4])[0]
+        refs.append(data[off + 4:off + 4 + ln - 1])
+        off += 4 + ln + 4
+    recs = []
+    while off < len(data):
+        sz = struct.unpack("<I", data[off:off + 4])[0]
+        recs.append(data[off + 4:off + 4 + sz])
+        off += 4 + sz
+    return refs, recs
+
+
+def same_output(a, b, f):
+    """file f of two output prefixes equal: SAM without its header, BAM as
+    (reference names, records), anything else byte for byte"""
+    if f.endswith(".bam"):
+        return bam_records(a + f) == bam_records(b + f)
+    if f.endswith(".sam"):
+        return strip_header(a + f) == strip_header(b + f)
+    with open(a + f, "rb") as x, open(b + f, "rb") as y:
+        return x.read() == y.read()
+
+
+class Spy:
+    """wraps module attributes for the length of a with-block: each wrapper
+    gets the real function first, then its arguments"""
+
+    def __init__(self, *patches):
+        self.patches = patches
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name, wrap in self.patches:
+            real = getattr(mod, name)
+            self.saved.append((mod, name, real))
+            setattr(mod, name, lambda *a, _w=wrap, _r=real, **k:
+                    _w(_r, *a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in reversed(self.saved):
+            setattr(mod, name, real)
+
+
+# the bundled goldens of the annotation layer: (golden, index, flags, files)
+ANNOT_GOLDENS = [
+    ("se_gtf", "genome_idx_gtf", ["--outSAMunmapped", "Within"],
+     ["Aligned.out.sam", "SJ.out.tab"]),
+    ("se_quant", "genome_idx_gtf",
+     ["--outSAMunmapped", "Within", "--quantMode", "GeneCounts"],
+     ["ReadsPerGene.out.tab", "SJ.out.tab"]),
+    ("se_trsam", "genome_idx_gtf", ["--quantMode", "TranscriptomeSAM"],
+     ["Aligned.toTranscriptome.out.bam"]),
+    ("se_bam", "genome_idx",
+     ["--outSAMunmapped", "Within",
+      "--outSAMtype", "BAM", "Unsorted", "SortedByCoordinate"],
+     ["Aligned.out.bam", "Aligned.sortedByCoord.out.bam"]),
+    ("se_2pass", "genome_idx",
+     ["--outSAMunmapped", "Within", "--twopassMode", "Basic"],
+     ["Aligned.out.sam", "SJ.out.tab", "_STARpass1/SJ.out.tab"]),
+]
+ANNOT_GENES = 1000        # synthetic genes of the at-scale annotation
+ANNOT_EXONS = 11          # exons per synthetic gene: 10 junctions each
+ANNOT_FROM = 100_000      # first base of their loci (the reads come from the
+                          # first 50 kb of chr1 and 35 kb of chr2)
+TR_FILES = ("exonInfo.tab", "transcriptInfo.tab", "geneInfo.tab",
+            "exonGeTrInfo.tab", "sjdbList.fromGTF.out.tab")
+
+
+def annot_goldens(fetch):
+    """the annotation layer's goldens on the card with the device stitch
+    engine forced on every level; each case's fetch_window launches and the
+    lanes whose junction lookup on the card (_sjdb_find_dev) found an
+    annotated junction"""
+    import shutil
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    found = []
+
+    def find(real, *a):
+        ind = real(*a)
+        found.append(int((ind >= 0).sum()))
+        return ind
+    gate = be.DEVICE_GROW_MIN_RECORDS
+    be.DEVICE_GROW_MIN_RECORDS = {s: 0 for _, s, _ in be.LEVELS}  # every level
+    try:
+        with Spy((ds, "_sjdb_find_dev", find)):
+            for gold, idx, flags, files in ANNOT_GOLDENS:
+                out = os.path.join(WORK, "annot_" + gold) + "/"
+                shutil.rmtree(out, ignore_errors=True)
+                P = Parameters(["--genomeDir", os.path.join(GOLD, idx),
+                                "--readFilesIn",
+                                os.path.join(DATA, "reads_se.fastq"),
+                                "--outFileNamePrefix", out, *flags])
+                found.clear()
+                n0 = fetch.LAUNCHES
+                t0 = time.time()
+                align_reads(P, device=DEVICE)
+                for f in files:
+                    if not same_output(out, os.path.join(GOLD, gold) + "/", f):
+                        raise AssertionError(f"annot golden {gold}: {f} "
+                                             "differs")
+                if fetch.LAUNCHES == n0:
+                    raise AssertionError(f"annot golden {gold}: no "
+                                         "fetch_window launch")
+                if idx != "genome_idx" or "--twopassMode" in flags:
+                    if not found or sum(found) == 0:
+                        raise AssertionError(f"annot golden {gold}: no lane "
+                                             "found an annotated junction")
+                log(f"annot: golden {gold}: {', '.join(files)} identical; "
+                    f"{fetch.LAUNCHES - n0} fetch_window launches, "
+                    f"{len(found)} junction lookups on the card, "
+                    f"{sum(found)} lanes found an annotated junction, "
+                    f"{time.time() - t0:.2f} s")
+    finally:
+        be.DEVICE_GROW_MIN_RECORDS = gate
+
+
+def write_annotation(np, src, path, chr_len):
+    """the generator's planted genes (src) and ANNOT_GENES synthetic genes
+    of ANNOT_EXONS exons at random loci from ANNOT_FROM on, from a fixed
+    seed.  Returns the number of distinct junctions written"""
+    rng = np.random.default_rng(13)
+    with open(src) as f:
+        text = [f.read()]
+    junctions = set()
+    names = sorted(chr_len)
+    for g in range(ANNOT_GENES):
+        c = names[int(rng.integers(0, len(names)))]
+        ex = rng.integers(50, 300, size=ANNOT_EXONS)
+        intr = rng.integers(80, 5000, size=ANNOT_EXONS - 1)
+        span = int(ex.sum() + intr.sum())
+        s = int(rng.integers(ANNOT_FROM, chr_len[c] - span - 1000))
+        strand = "+-"[int(rng.integers(0, 2))]
+        gid = f"SG{g + 1}"
+        attr = f'gene_id "{gid}"; transcript_id "{gid}.1";'
+        text.append(f"{c}\tsynth\tgene\t{s + 1}\t{s + span}\t.\t{strand}\t.\t"
+                    f'gene_id "{gid}";\n')
+        text.append(f"{c}\tsynth\ttranscript\t{s + 1}\t{s + span}\t.\t"
+                    f"{strand}\t.\t{attr}\n")
+        p = s
+        for i in range(ANNOT_EXONS):
+            text.append(f"{c}\tsynth\texon\t{p + 1}\t{p + int(ex[i])}\t.\t"
+                        f"{strand}\t.\t{attr}\n")
+            p += int(ex[i])
+            if i < ANNOT_EXONS - 1:
+                junctions.add((c, p + 1, p + int(intr[i])))
+                p += int(intr[i])
+    with open(path, "w") as f:
+        f.write("".join(text))
+    return len(junctions) + 3
+
+
+def annot_scale(torch, np, fetch, tile_fetch, idx, data):
+    """a two-pass run of the chr20-scale batch with a GTF given at mapping
+    time, GeneCounts, TranscriptomeSAM and both BAMs, through the port's
+    entry point on the card, held against a run of the same reads and flags
+    with the numpy stitch engine on the index pass 2 mapped against
+    (saved by --sjdbInsertSave All).  Returns the main run's launches"""
+    import shutil
+    from star_tpu_torch import run
+    from star_tpu_torch.genome import native, sjdb
+    from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.ops import pipeline
+    from star_tpu_torch.params import Parameters
+    gi0 = GenomeIndex.load(idx)
+    gtf = os.path.join(WORK, "annot_scale.gtf")
+    n_sj = write_annotation(
+        np, os.path.join(data, "annot.gtf"), gtf,
+        {n: int(l) for n, l in zip(gi0.chr_name, gi0.chr_length)})
+    del gi0
+    out = os.path.join(WORK, "annot") + "/"
+    out_np = os.path.join(WORK, "annot_numpy") + "/"
+    for d in (out, out_np):
+        for x in ("", "_STARtmp", "_STARpass1", "_STARgenome"):
+            shutil.rmtree(d + x if x else d, ignore_errors=True)
+    reads = os.path.join(data, "reads_se.fastq")
+    flags = ["--readFilesIn", reads, "--readMapNumber", str(N_READS),
+             "--tpuBatchSize", str(N_READS), "--sjdbOverhang", "99",
+             "--quantMode", "TranscriptomeSAM", "GeneCounts",
+             "--outSAMtype", "BAM", "Unsorted", "SortedByCoordinate"]
+    P = Parameters(["--genomeDir", idx, "--outFileNamePrefix", out,
+                    "--sjdbGTFfile", gtf, "--twopassMode", "Basic",
+                    "--sjdbInsertSave", "All", *flags])
+    passes, inserts, branch = [], [], []
+
+    def mapping(real, P_, gi, *a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = fetch.LAUNCHES
+        t0 = time.time()
+        stats = real(P_, gi, *a, **k)
+        torch.cuda.synchronize()
+        passes.append({"s": time.time() - t0, "reads": stats.read_n,
+                       "launches": fetch.LAUNCHES - n0, "sjdb_n": gi.sjdb_n,
+                       "peak": torch.cuda.max_memory_allocated()})
+        return stats
+
+    def insert(real, *a, **k):
+        branch.append("full re-sort")
+        t0 = time.time()
+        gi = real(*a, **k)
+        inserts.append((time.time() - t0, gi.sjdb_n, branch[-1]))
+        return gi
+
+    def positions(real, *a, **k):
+        sa = real(*a, **k)
+        if sa is not None:
+            branch[-1] = "native rank merge"
+        return sa
+
+    pristine = []
+
+    def pristine_timed(real, gi):
+        t0 = time.time()
+        base = real(gi)
+        pristine.append((time.time() - t0, gi.sjdb_n))
+        return base
+
+    pipeline.TIMING = True
+    pipeline.TIMERS.clear()
+    fetch.LAUNCHES = 0                       # counts of this slice's main path
+    fetch.ROWS_LAUNCHES = 0
+    tile_fetch.LAUNCHES = 0
+    t0 = time.time()
+    try:
+        with Spy((run, "_run_mapping", mapping),
+                 (sjdb, "insert_junctions", insert),
+                 (native, "sa_insert_positions", positions),
+                 (run, "_pristine", pristine_timed)):
+            run.align_reads(P, device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        pipeline.TIMING = False
+    wall = time.time() - t0
+    launches = {"fetch_window": fetch.LAUNCHES,
+                "fetch_rows": fetch.ROWS_LAUNCHES,
+                "tile_fetch": tile_fetch.LAUNCHES}
+    t = pipeline.TIMERS
+    log(f"annot: the annotation {gtf}: {ANNOT_GENES} synthetic genes of "
+        f"{ANNOT_EXONS} exons and the 3 planted genes, {n_sj} distinct "
+        "junctions")
+    for i, (s, n, how) in enumerate(inserts):
+        log(f"annot: insertion {i + 1}: {n} junctions in the index, "
+            f"{how}, {s:.2f} s")
+    for i, (s, n) in enumerate(pristine):
+        log(f"annot: _pristine before insertion {i + 1}: an index of {n} "
+            f"junctions, {s:.2f} s" + (" (no re-sort)" if n == 0 else
+                                       " (whole suffix array re-sorted)"))
+    for i, p in enumerate(passes):
+        log(f"annot: pass {i + 1}: {p['reads']} reads in {p['s']:.2f} s = "
+            f"{p['reads'] / p['s']:.1f} reads/s (index upload included), "
+            f"{p['launches']} fetch_window launches, an index of "
+            f"{p['sjdb_n']} junctions, peak device memory {p['peak']} B")
+    log(f"annot: host stages (TIMERS): " + ", ".join(
+        f"{k} {t[k]:.3f} s" for k in ("sjdb_insert", "pristine", "bam_encode",
+                                      "quant", "bam_finish")))
+    log(f"annot: two-pass run {wall:.2f} s; fetch_window launches "
+        f"{launches['fetch_window']}, fetch_rows {launches['fetch_rows']}, "
+        f"tile_fetch {launches['tile_fetch']}")
+
+    if len(passes) != 2 or len(inserts) != 2 or len(pristine) != 2:
+        raise AssertionError(f"annot: {len(passes)} passes, {len(inserts)} "
+                             f"insertions, {len(pristine)} pristine calls")
+    if min(p["launches"] for p in passes) <= 0:
+        raise AssertionError("annot: a pass launched no fetch_window")
+    if passes[0]["reads"] != passes[1]["reads"] or passes[1]["reads"] <= 0:
+        raise AssertionError(f"annot: {passes[0]['reads']} reads in pass 1, "
+                             f"{passes[1]['reads']} in pass 2")
+    if not 0 < passes[0]["sjdb_n"] <= passes[1]["sjdb_n"]:
+        raise AssertionError("annot: pass 2's index lost junctions of "
+                             "pass 1's")
+
+    # ---- the same reads and flags with the numpy engine, on pass 2's index
+    gdir = out + "_STARgenome"
+    for f in TR_FILES:
+        shutil.copy(out + "_STARtmp/" + f, gdir)
+    os.environ["STAR_TPU_DEVICE_STITCH"] = "0"
+    t0 = time.time()
+    try:
+        run.align_reads(Parameters(["--genomeDir", gdir,
+                                    "--outFileNamePrefix", out_np, *flags]),
+                        device=DEVICE)
+    finally:
+        del os.environ["STAR_TPU_DEVICE_STITCH"]
+    files = ["SJ.out.tab", "Aligned.out.bam", "Aligned.sortedByCoord.out.bam",
+             "ReadsPerGene.out.tab", "Aligned.toTranscriptome.out.bam"]
+    for f in files:
+        if not same_output(out, out_np, f):
+            raise AssertionError(f"annot: {f} of the two-pass run differs "
+                                 "from the numpy-engine run")
+    n_rec = len(bam_records(out + "Aligned.out.bam")[1])
+    n_tr = len(bam_records(out + "Aligned.toTranscriptome.out.bam")[1])
+    log(f"annot: {', '.join(files)} identical to the numpy-engine run on "
+        f"pass 2's index ({time.time() - t0:.2f} s); {n_rec} BAM records, "
+        f"{n_tr} transcriptome records")
+    return launches
 
 
 def main():
@@ -916,6 +1257,10 @@ def main():
                 phase_tile_kernel(torch, np, tile_fetch)]
         phase_golden(fetch)
         launches, replay = phase_full(torch, np, fetch, data_proc, data)
+        annot_goldens(fetch)
+        annot = annot_scale(torch, np, fetch, tile_fetch,
+                            os.path.join(WORK, "idx"), data)
+        launches = {k: v + annot[k] for k, v in launches.items()}
         for k in kern:
             k["launches"] = launches[k["name"]]
         ph = replay["fetches"]

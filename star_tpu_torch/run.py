@@ -1,11 +1,23 @@
-"""Run driver: alignReads.
+"""Run drivers: genomeGenerate, alignReads, liftOver and
+inputAlignmentsFromBAM.
 
-The port's run surface is alignReads with SAM, SJ.out.tab and log outputs,
-single- and paired-end, with outFilterType BySJout and unmapped-read FASTX
-output (reference: source/STAR.cpp dispatch).  The device path runs the seed
-search on the GPU (ops/pipeline.py DeviceAligner); the host runs the rest.
-Options whose stages are not ported yet stop the run with a message that
-names them.
+The port's run surface (reference: source/STAR.cpp dispatch): index
+generation with or without annotations, mapping-time sjdb insertion, two-pass
+mode (pass-1 junction discovery + re-insertion, reference:
+twoPassRunPass1.cpp), outFilterType BySJout, SAM / BAM (unsorted and
+coordinate-sorted) / SJ / log outputs, unmapped-read FASTX, GeneCounts and
+TranscriptomeSAM quantification, bedGraph signal, BAM duplicate removal and
+GTF liftOver, single- and paired-end.  The device path runs the seed search
+and the stitch engine on the GPU (ops/pipeline.py DeviceAligner); the host
+runs the rest.  Options whose stages are not ported yet stop the run with a
+message that names them.
+
+With pipeline.TIMING on, the host stages of this module add to
+pipeline.TIMERS: sjdb_insert (junction collection, insertion and
+--sjdbInsertSave), pristine (the re-sort of an index without its junction
+region before re-insertion), bam_encode, quant (GeneCounts and
+TranscriptomeSAM per read), bam_finish (the coordinate sort and the BAM
+writes) and signal.
 """
 from __future__ import annotations
 
@@ -20,19 +32,15 @@ from .align.engine import ReadAligner
 from .io.fastq import read_pairs_indexed
 from .io.sam import sam_header, write_read_sam
 from .io.sj import SJCollector
+from .ops.pipeline import _tick
 from .stats import RunStats
 
 
 def _not_ported(P: Parameters):
-    """options outside this port's slice -> the option names"""
+    """options outside this port's slices -> the option names"""
     checks = [
-        ("--outSAMtype BAM", P.outBAMunsorted or P.outBAMcoord),
-        ("--quantMode", P.quantModeGeneCounts or P.quantModeTrSAM),
         ("--soloType", P.soloTypeYes),
         ("--chimSegmentMin", P.chimSegmentMin > 0),
-        ("--twopassMode", P.twopassYes),
-        ("--sjdbGTFfile / --sjdbFileChrStartEnd at mapping time",
-         P.sjdbGTFfile != "-" or P.sjdbFileChrStartEnd[0] != "-"),
         ("--varVCFfile", P.varVCFfile != "-"),
         ("--genomeTransformOutput", P.transformOutYes),
         ("--peOverlapNbasesMin", P.peOverlapNbasesMin > 0),
@@ -42,19 +50,148 @@ def _not_ported(P: Parameters):
     return [name for name, on in checks if on]
 
 
+def _refuse(names):
+    raise SystemExit("EXITING: option(s) not yet ported to star_tpu_torch: "
+                     + ", ".join(names))
+
+
+def genome_generate(P: Parameters):
+    if P.transformTypeN > 0:
+        _refuse(["--genomeTransformVCF / --genomeTransformType"])
+    gi = GenomeIndex.generate(
+        P.genomeFastaFiles, chr_bin_nbits=P.genomeChrBinNbits,
+        sa_index_nbases=P.genomeSAindexNbases, sa_sparse_d=P.genomeSAsparseD)
+    if P.sjdbGTFfile != "-" or P.sjdbFileChrStartEnd[0] != "-":
+        from .genome.sjdb import insert_junctions_from_annotations
+        gi.sjdb_overhang = P.sjdbOverhang
+        gi = insert_junctions_from_annotations(gi, P, out_dir=P.genomeDir)
+    gi.save(P.genomeDir)
+    return gi
+
+
+def _collect_sjdb_loci(gi, P, pass1_sj_file=None):
+    """junction list for (re-)insertion: saved genome sjdb (prio 30) +
+    mapping-time files (10) / GTF (20) + pass-1 discoveries (0)."""
+    from .genome.gtf import SjdbLoci, parse_gtf, transcript_gene_sj
+    from .genome.sjdb import load_sjdb_file
+    sjdb = SjdbLoci()
+    if gi.sjdb_n > 0:
+        # reconstruct saved junction list from tables
+        strand_char = ".+-"
+        for i in range(gi.sjdb_n):
+            s, e = int(gi.sjdb_start[i]), int(gi.sjdb_end[i])
+            sh = int(gi.sjdb_shift_left[i]) if gi.sjdb_motif[i] == 0 else 0
+            ci = int(gi.chr_bin[s >> gi.chr_bin_nbits])
+            cs = int(gi.chr_start[ci])
+            sjdb.chr.append(gi.chr_name[ci])
+            sjdb.start.append(s - cs + 1 + sh)
+            sjdb.end.append(e - cs + 1 + sh)
+            sjdb.str_.append(strand_char[gi.sjdb_strand[i]])
+            sjdb.gene.append(set())
+            sjdb.priority.append(30)
+    if P.sjdbFileChrStartEnd[0] != "-":
+        for path in P.sjdbFileChrStartEnd:
+            load_sjdb_file(path, sjdb, priority=10)
+    if P.sjdbGTFfile != "-":
+        ann = parse_gtf(P.sjdbGTFfile, gi, P)
+        transcript_gene_sj(ann, gi, _tmp_dir(P), sjdb)
+    if pass1_sj_file is not None:
+        load_sjdb_file(pass1_sj_file, sjdb, priority=0)
+    return sjdb
+
+
+def _tmp_dir(P):
+    d = P.outFileNamePrefix + "_STARtmp"
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _pristine(gi):
+    """genome index restricted to the real chromosomes (drop sj region)"""
+    if gi.sjdb_n == 0:
+        return gi
+    import numpy as np
+    from .genome.fasta import build_t2
+    from .genome.generate import sort_suffixes, build_sai
+    n_real = int(gi.chr_start[-1])
+    G = gi.G[:n_real].copy()
+    t2 = build_t2(G)
+    sa = sort_suffixes(t2)
+    sai = build_sai(t2, sa, gi.sa_index_nbases)
+    return GenomeIndex(
+        G=G, t2=t2, sa=sa, sai_level_start=sai["level_start"],
+        sai_val=sai["val"], sai_absent=sai["absent"], sai_nbit=sai["nbit"],
+        chr_name=list(gi.chr_name), chr_start=gi.chr_start.copy(),
+        chr_length=gi.chr_length.copy(), chr_bin_nbits=gi.chr_bin_nbits,
+        sa_index_nbases=gi.sa_index_nbases, sa_sparse_d=gi.sa_sparse_d,
+        sjdb_overhang=gi.sjdb_overhang)
+
+
 def align_reads(P: Parameters, gi: Optional[GenomeIndex] = None,
                 use_device=None, device=None) -> RunStats:
-    """align P.readFilesIn against the index; the seed search runs on
-    `device` (default cuda) unless use_device is False (or --tpuUseDevice 0),
-    which takes the per-read host oracle"""
+    """align P.readFilesIn against the index; the seed search and the stitch
+    engine run on `device` (default cuda) unless use_device is False (or
+    --tpuUseDevice 0), which takes the per-read host oracle.  Each pass of a
+    two-pass run maps on the same device, against its own index."""
     bad = _not_ported(P)
     if bad:
-        raise SystemExit("EXITING: option(s) not yet ported to star_tpu_torch: "
-                         + ", ".join(bad))
+        _refuse(bad)
     if gi is None:
         gi = GenomeIndex.load(P.genomeDir)
     P.trInfoDir = P.genomeDir
+
+    # mapping-time sjdb insertion (GTF / junction files given at align time)
+    if P.sjdbGTFfile != "-" or P.sjdbFileChrStartEnd[0] != "-":
+        from .genome.sjdb import insert_junctions
+        with _tick("sjdb_insert"):
+            sjdb = _collect_sjdb_loci(gi, P)
+        with _tick("pristine"):
+            base = _pristine(gi)
+        with _tick("sjdb_insert"):
+            base.sjdb_overhang = (P.sjdbOverhang if gi.sjdb_n == 0
+                                  else gi.sjdb_overhang)
+            gi = insert_junctions(base, sjdb, P, out_dir=_tmp_dir(P))
+            if P.sjdbGTFfile != "-":
+                P.trInfoDir = _tmp_dir(P)
+            _sjdb_insert_save(gi, P)
+
+    # two-pass: pass 1 + junction re-insertion
+    if P.twopassYes:
+        pass1_dir = P.outFileNamePrefix + "_STARpass1/"
+        os.makedirs(pass1_dir, exist_ok=True)
+        P1 = P.clone(outSAMtype=["None"], outSAMunmapped=["None"],
+                     outReadsUnmapped="None", outFileNamePrefix=pass1_dir,
+                     twopassMode="None", outFilterType="Normal",
+                     quantMode=["-"], genomeTransformOutput=["None"],
+                     readMapNumber=(P.twopass1readsN
+                                    if P.twopass1readsN >= 0 else P.readMapNumber))
+        _run_mapping(P1, gi, use_device, device)
+        # pass 1's device tables go before pass 2 uploads its own index
+        gi._device_cache.clear()
+        from .genome.sjdb import insert_junctions
+        with _tick("sjdb_insert"):
+            sjdb = _collect_sjdb_loci(gi, P,
+                                      pass1_sj_file=pass1_dir + "SJ.out.tab")
+        with _tick("pristine"):
+            base = _pristine(gi)
+        with _tick("sjdb_insert"):
+            base.sjdb_overhang = (P.sjdbOverhang if base.sjdb_overhang == 0
+                                  else base.sjdb_overhang)
+            if base.sjdb_overhang == 0:
+                base.sjdb_overhang = 100
+            gi = insert_junctions(base, sjdb, P, out_dir=_tmp_dir(P))
+            _sjdb_insert_save(gi, P)
+
     return _run_mapping(P, gi, use_device, device)
+
+
+def _sjdb_insert_save(gi, P):
+    """--sjdbInsertSave All: persist the junction-augmented index under
+    <prefix>_STARgenome/ so later runs skip re-insertion (reference:
+    sjdbInsertJunctions.cpp:70-98 saving into P.sjdbInsert.outDir)"""
+    if getattr(P, "sjdbInsertSave", "Basic") == "All":
+        out = P.outFileNamePrefix + "_STARgenome"
+        gi.save(out)
 
 
 def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
@@ -79,6 +216,30 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
     stats.open_progress(prefix + "Log.progress.out")
     log_out.line("started mapping")
 
+    bam = None
+    if P.outBAMunsorted or P.outBAMcoord:
+        from .io.bam import BamCollector
+        bam = BamCollector(gi, P, prefix)
+
+    gene_counts = None
+    tr_sam = None
+    trm = None
+    if P.quantModeGeneCounts or P.quantModeTrSAM:
+        from .quant.transcriptome import Transcriptome, GeneCounts
+        trm = Transcriptome.load(getattr(P, "trInfoDir", P.genomeDir))
+        if P.quantModeGeneCounts:
+            gene_counts = GeneCounts(trm)
+    if P.quantModeTrSAM:
+        from .quant.trsam import TrGenomeShim, quant_transcriptome
+        from .io.bam import BgzfWriter, bam_header_bytes, encode_mapped
+        from .utils.rng import MT19937
+        tr_shim = TrGenomeShim(trm)
+        tr_bam = BgzfWriter(prefix + "Aligned.toTranscriptome.out.bam")
+        tr_bam.write(bam_header_bytes(None, P, chr_names=tr_shim.chr_name,
+                                      chr_lens=[int(x) for x in tr_shim.chr_length]))
+        tr_rng = MT19937(P.runRNGseed * 1)
+        tr_sam = (quant_transcriptome, encode_mapped, tr_shim, tr_bam, tr_rng)
+
     if use_device is None:
         use_device = bool(P.tpuUseDevice)
 
@@ -90,10 +251,31 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
         unmapped_streams = [open(prefix + f"Unmapped.out.mate{i+1}", "w")
                             for i in range(P.readNmates)]
 
+    def quant(res):
+        if gene_counts is not None:
+            gene_counts.add_read(res.transcripts, res.n_tr)
+        if tr_sam is not None:
+            quantt, enc, shim, w, rng = tr_sam
+            mm_max = min(P.outFilterMismatchNmax,
+                         int(P.outFilterMismatchNoverReadLmax
+                             * (res.read_length[0] + res.read_length[1])))
+            al_t = quantt(res, trm, gi, P, rng, mm_max)
+            for i_t, at in enumerate(al_t):
+                at.roStr = 0
+                for (r, _, _, _) in enc(at, res, len(al_t), i_t, shim, P,
+                                        attrs_order=["NH", "HI"]):
+                    w.write(r)
+
     def emit(res):
         if res.unmap_type < 0:
             sj.add_read(res.transcripts, res.n_tr)
             stats.add_mapped(res)
+            if trm is not None:
+                with _tick("quant"):
+                    quant(res)
+        if bam is not None:
+            with _tick("bam_encode"):
+                bam.add_read(res)
         write_read_sam(res, gi, P, sam_lines)
         if res.unmap_type >= 0:
             stats.add_unmapped(res)
@@ -150,8 +332,22 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
     log_out.line("finished mapping")
 
     sam_lines.close()
+    if tr_sam is not None:
+        tr_sam[3].close()
+    if bam is not None:
+        with _tick("bam_finish"):
+            bam.finish()
+        if P.outWigType[0] != "None" and P.outBAMcoord:
+            from .io.signal import signal_from_bam
+            with _tick("signal"):
+                signal_from_bam(prefix + "Aligned.sortedByCoord.out.bam",
+                                prefix + "Signal", P)
     if P.outSJtype == "Standard":
         sj.write(prefix + "SJ.out.tab")
+    if gene_counts is not None:
+        n_unmapped = (stats.unmapped_mm + stats.unmapped_short
+                      + stats.unmapped_other + stats.unmapped_multi)
+        gene_counts.write(prefix + "ReadsPerGene.out.tab", n_unmapped)
     with open(prefix + "Log.final.out", "w") as f:
         f.write(stats.report_final())
     log_out.line("finished successfully")
@@ -275,9 +471,21 @@ def _align_all(P: Parameters, gi: GenomeIndex, stats: RunStats,
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     P = Parameters(argv)
-    if P.runMode[0] != "alignReads":
-        raise SystemExit(f"EXITING: --runMode {P.runMode[0]} is not yet "
-                         "ported to star_tpu_torch")
+    if "genomeGenerate" in P.runMode:
+        genome_generate(P)
+    elif P.runMode[0] == "liftOver":
+        from .io.liftover import lift_over_main
+        lift_over_main(P)
+    elif P.runMode[0] == "soloCellFiltering":
+        _refuse(["--runMode soloCellFiltering"])
+    elif "inputAlignmentsFromBAM" in P.runMode:
+        if P.outWigType[0] != "None":
+            from .io.signal import signal_from_bam
+            signal_from_bam(P.inputBAMfile, P.outFileNamePrefix + "Signal", P)
+        elif P.bamRemoveDuplicatesType != "-":
+            from .io.dedup import bam_remove_duplicates
+            bam_remove_duplicates(P.inputBAMfile,
+                                  P.outFileNamePrefix + "Processed.out.bam", P)
     else:
         align_reads(P)
 

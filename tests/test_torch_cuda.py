@@ -2,8 +2,9 @@
 kernels (fetch_window, fetch_rows, tile_fetch) against their plain PyTorch
 versions, the MMP search on the card
 against the host oracle, the device grow on the card against the numpy
-grow, and the device finalize, select and pack on the card against the same
-engine on CPU tensors.  They skip where no card is present.  This file
+grow, the device finalize, select and pack on the card against the same
+engine on CPU tensors, and two-pass mapping, GeneCounts and BAM output on the
+card against the goldens.  They skip where no card is present.  This file
 imports neither jax nor star_tpu, so on a machine with a card and no jax it
 runs as
 
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ANNOT_GOLDENS, same_output
 from star_tpu_torch.ops import fetch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -284,3 +286,42 @@ def test_device_finalize_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
             assert gs[be.W_MAX, "downloaded"] < gs[be.W_MAX, "accepted"]
         else:
             assert over is None and (~acc).any()
+
+
+ANNOT_CASES = [c for c in ANNOT_GOLDENS
+               if c[0] in ("se_2pass", "se_quant", "se_bam")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gold,idx,extra,files", ANNOT_CASES,
+                         ids=[c[0] for c in ANNOT_CASES])
+def test_annotation_outputs_on_card_match_goldens(cuda, tmp_path, monkeypatch,
+                                                  gold, idx, extra, files):
+    """two-pass mapping, GeneCounts and BAM output on the card with the
+    device stitch engine forced on every level: byte-identical to the
+    goldens (BAMs as record streams), each pass launching fetch_window"""
+    from star_tpu_torch import run
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import _run_mapping, align_reads
+    monkeypatch.delenv("STAR_TPU_DEVICE_STITCH", raising=False)
+    monkeypatch.setattr(be, "DEVICE_GROW_MIN_RECORDS",
+                        {s_max: 0 for _, s_max, _ in be.LEVELS})
+    launches = []
+
+    def counted(*a, **k):
+        n0 = fetch.LAUNCHES
+        out = _run_mapping(*a, **k)
+        launches.append(fetch.LAUNCHES - n0)
+        return out
+    monkeypatch.setattr(run, "_run_mapping", counted)
+    prefix = str(tmp_path) + "/"
+    P = Parameters(["--genomeDir", os.path.join(GOLD, idx), "--readFilesIn",
+                    os.path.join(ROOT, "tests", "data", "small",
+                                 "reads_se.fastq"),
+                    "--outFileNamePrefix", prefix, *extra])
+    align_reads(P, device=cuda)
+    assert len(launches) == (2 if "--twopassMode" in extra else 1)
+    assert min(launches) > 0
+    for f in files:
+        assert same_output(prefix, os.path.join(GOLD, gold) + "/", f), f

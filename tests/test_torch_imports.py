@@ -7,7 +7,7 @@ import os
 import pytest
 import torch
 
-from tests.conftest import GOLD, ROOT
+from tests.conftest import DATA, GOLD, ROOT
 
 
 def _sources():
@@ -57,10 +57,66 @@ def test_options_outside_the_slice_are_refused(tmp_path):
     from star_tpu_torch.params import Parameters
     from star_tpu_torch.run import align_reads
     P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
-                    "--readFilesIn", "none.fastq", "--quantMode", "GeneCounts",
+                    "--readFilesIn", "none.fastq", "--chimSegmentMin", "12",
+                    "--quantMode", "GeneCounts",
                     "--outFileNamePrefix", str(tmp_path) + "/"])
-    with pytest.raises(SystemExit, match="not yet ported.*quantMode"):
+    with pytest.raises(SystemExit, match="not yet ported.*chimSegmentMin$"):
         align_reads(P, device="cpu")
+
+
+REFUSED = [
+    (["--soloType", "CB_UMI_Simple"], "--soloType"),
+    (["--chimSegmentMin", "12"], "--chimSegmentMin"),
+    (["--varVCFfile", os.path.join(DATA, "var.vcf")], "--varVCFfile"),
+    (["--genomeTransformOutput", "SAM"], "--genomeTransformOutput"),
+    (["--peOverlapNbasesMin", "5"], "--peOverlapNbasesMin"),
+    (["--tpuShardedIndex", "1"], "--tpuShardedIndex"),
+    (["--tpuLongReads", "1"], "--tpuLongReads"),
+    (["--runMode", "soloCellFiltering"], "--runMode soloCellFiltering"),
+    (["--runMode", "genomeGenerate", "--genomeTransformType", "Haploid",
+      "--genomeTransformVCF", os.path.join(DATA, "transform.vcf"),
+      "--genomeFastaFiles", os.path.join(DATA, "genome.fa")],
+     "--genomeTransformVCF"),
+]
+
+
+@pytest.mark.parametrize("flags,name", REFUSED, ids=[n for _, n in REFUSED])
+def test_not_ported_names_each_refused_option(tmp_path, flags, name):
+    """each option whose slice has not come yet stops the run, through the
+    command line, with a message that names it, before any output"""
+    from star_tpu_torch.run import main
+    out = str(tmp_path / "o") + "/"
+    with pytest.raises(SystemExit) as e:
+        main(["--genomeDir", out if "genomeGenerate" in flags
+              else os.path.join(GOLD, "genome_idx"),
+              "--readFilesIn", os.path.join(DATA, "reads_se.fastq"),
+              "--outFileNamePrefix", out, *flags])
+    msg = str(e.value)
+    assert msg.startswith("EXITING: option(s) not yet ported") and name in msg
+    assert not os.path.exists(out)
+
+
+def test_port_modules_import_without_jax_or_star_tpu():
+    """every module of star_tpu_torch imports in a fresh interpreter, and
+    neither jax nor star_tpu is in sys.modules after"""
+    import subprocess
+    import sys
+    mods = sorted(
+        "star_tpu_torch." + os.path.relpath(p, os.path.join(ROOT, "star_tpu_torch"))
+        [:-3].replace(os.sep, ".").replace(".__init__", "")
+        for p in _sources() if p.endswith(".py") and "star_tpu_torch" in p
+        and not p.endswith("__main__.py"))
+    assert {"star_tpu_torch.genome.sjdb", "star_tpu_torch.io.bam",
+            "star_tpu_torch.quant.trsam", "star_tpu_torch.utils.rng",
+            "star_tpu_torch.io.liftover"} <= set(mods)
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'star_tpu'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
 
 
 def test_kernel_modules_build_nothing_at_import():
