@@ -64,10 +64,29 @@ in order; any failure ends the run with a non-zero exit and no result line:
              pristine, bam_encode, quant, bam_finish); SJ.out.tab, both BAMs,
              ReadsPerGene.out.tab and the transcriptome BAM identical to a run
              of the same reads and flags with the numpy engine on the index
-             pass 2 mapped against.
+             pass 2 mapped against;
+  6. fusion  the host-finished features on cuda: the goldens se_chim,
+             chim_mult, chim_samold, chim_wbam_old, chim_wbam_mult, var and
+             wasp (the seed loop on the card, the stitch on the host), peov
+             with the device stitch engine forced, long on its logged host
+             route, and the transformed indexes idx_transform_hap / _dip
+             built by the port's genomeGenerate, then tf_hap / tf_dip with
+             the device stitch engine forced (each identical, BAMs record for
+             record; fetch_window launches per golden); then fusion detection
+             at the chr20 scale: 8,192 seeded 2 x 100 pairs (fusion_pairs:
+             5 % across 16 planted chr1-chr2 fusions, 30 % with overlapping
+             mates) mapped on cuda with STAR-Fusion's STAR flags (FUSION_FLAGS,
+             without its --twopassMode Basic: phase 5 runs two passes):
+             pairs/s, stages, the PE-merge remap and chimeric detection
+             seconds, fetch_window launches, peak device memory, chimeric
+             and PE-merged reads; every planted fusion must be reported at
+             its breakpoint in Chimeric.out.junction, and the first 512
+             pairs mapped on the card and with the host oracle
+             (--tpuUseDevice 0) must give the same SAM, SJ.out.tab and
+             Chimeric.out.junction.
 
 Then one JSON line of kernel measurements (launches: those of phase 4's
-batch and of phase 5's two-pass run), the card's name and power limit
+batch, phase 5's two-pass run and phase 6's pair set), the card's name and power limit
 (nvidia-smi), and as the last line {"ok": true, "device": {...}}.
 Generated data, the index and outputs stay under star_tpu_torch/_build/.
 """
@@ -125,6 +144,100 @@ def cuda_ms(fn, iters=20, warm=3):
 def strip_header(path):
     with open(path) as f:
         return [l for l in f if not l.startswith("@")]
+
+
+# STAR-Fusion's documented STAR command (STAR-Fusion wiki, "STAR-Fusion:
+# running STAR"), without --twopassMode Basic (phase 5 runs two passes)
+FUSION_FLAGS = [
+    "--outSAMstrandField", "intronMotif", "--outSAMunmapped", "Within",
+    "--chimSegmentMin", "12", "--chimJunctionOverhangMin", "8",
+    "--chimOutJunctionFormat", "1", "--alignSJDBoverhangMin", "10",
+    "--alignMatesGapMax", "100000", "--alignIntronMax", "100000",
+    "--alignSJstitchMismatchNmax", "5", "-1", "5", "5",
+    "--outSAMattrRGline", "ID:GRPundef", "--chimMultimapScoreRange", "3",
+    "--chimScoreJunctionNonGTAG", "-4", "--chimMultimapNmax", "20",
+    "--chimNonchimScoreDropMin", "10", "--peOverlapNbasesMin", "12",
+    "--peOverlapMMp", "0.1", "--alignInsertionFlush", "Right",
+    "--alignSplicedMateMapLminOverLmate", "0", "--alignSplicedMateMapLmin",
+    "30"]
+FUSION_SHARE = 0.05       # pairs from a fusion transcript, across its junction
+OVERLAP_SHARE = 0.30      # pairs whose mates overlap (insert 120-190 bp)
+FUSION_EXON = 300         # bases of each partner in a fusion transcript
+
+
+def read_fasta(path):
+    """{name: sequence} of a FASTA file, upper case"""
+    with open(path) as f:
+        recs = f.read().split(">")[1:]
+    return {r.split("\n", 1)[0].split()[0]:
+            r.split("\n", 1)[1].replace("\n", "").upper() for r in recs}
+
+
+def fusion_pairs(np, genome_fa, out1, out2, n_pairs, n_fusions, seed):
+    """a seeded paired-end 2 x 100 set from the first two chromosomes of
+    genome_fa, written to out1 / out2 as FASTQ: n_fusions fusions join a
+    chr1 donor exon ending before a GT to a chr2 acceptor exon starting after
+    an AG; FUSION_SHARE of the pairs come from these fusion transcripts, in
+    turn, and span the junction: every other round of turns inside the first
+    mate (20-80 bases in), the others anywhere 20 bases or more from the
+    fragment's ends (inside a mate or between the mates); OVERLAP_SHARE
+    have overlapping mates (insert 120-190 bp); the rest are ordinary pairs
+    (insert 250-500 bp).  1 % of the bases are substituted.  Returns the
+    planted fusions as (chr1 name, donor's last exon base, chr2 name,
+    acceptor's first exon base), 1-based."""
+    rng = np.random.default_rng(seed)
+    chrs = read_fasta(genome_fa)
+    (ca, sa), (cb, sb) = list(chrs.items())[:2]
+    comp = str.maketrans("ACGTN", "TGCAN")
+    rc = lambda s: s.translate(comp)[::-1]
+
+    def locus(seq, motif, donor):
+        while True:
+            p = int(rng.integers(FUSION_EXON + 1000,
+                                 len(seq) - FUSION_EXON - 1000))
+            if (seq[p:p + 2] if donor else seq[p - 2:p]) == motif:
+                return p
+    fusions, transcripts = [], []
+    for _ in range(n_fusions):
+        a, b = locus(sa, "GT", True), locus(sb, "AG", False)
+        fusions.append((ca, a, cb, b + 1))
+        transcripts.append(sa[a - FUSION_EXON:a] + sb[b:b + FUSION_EXON])
+
+    def mutate(s):
+        s = np.frombuffer(s.encode(), np.uint8).copy()
+        hit = rng.random(len(s)) < 0.01
+        s[hit] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, hit.sum())]
+        return s.tobytes().decode()
+    n_fus = 0
+    with open(out1, "w") as f1, open(out2, "w") as f2:
+        for i in range(n_pairs):
+            u = rng.random()
+            if u < FUSION_SHARE:
+                k, turn = n_fus % n_fusions, n_fus // n_fusions
+                n_fus += 1
+                ins = int(rng.integers(150, 2 * FUSION_EXON - 40))
+                if turn % 2 == 0:
+                    s = FUSION_EXON - int(rng.integers(20, 81))
+                    ins = min(ins, 2 * FUSION_EXON - s)
+                else:
+                    s = int(rng.integers(max(0, FUSION_EXON - ins + 20),
+                                         FUSION_EXON - 20 + 1))
+                frag, name = transcripts[k][s:s + ins], f"r{i}_fusion{k}"
+            else:
+                ins = int(rng.integers(120, 191) if u < FUSION_SHARE
+                          + OVERLAP_SHARE else rng.integers(250, 501))
+                seq = sa if rng.random() < len(sa) / (len(sa) + len(sb)) \
+                    else sb
+                s = int(rng.integers(1000, len(seq) - ins - 1000))
+                frag = seq[s:s + ins]
+                name = f"r{i}_" + ("overlap" if ins <= 190 else "pair")
+            m1, m2 = frag[:100], rc(frag[-100:])
+            if rng.random() < 0.5:
+                m1, m2 = m2, m1
+            q = "I" * 100
+            f1.write(f"@{name}\n{mutate(m1)}\n+\n{q}\n")
+            f2.write(f"@{name}\n{mutate(m2)}\n+\n{q}\n")
+    return fusions
 
 
 def row_bytes(torch, starts, n_rows, idx_bytes, fet, tile):
@@ -1224,6 +1337,283 @@ def annot_scale(torch, np, fetch, tile_fetch, idx, data):
     return launches
 
 
+WBAM = ["--outSAMtype", "BAM", "Unsorted"]
+VCF = ["--outSAMtype", "BAM", "Unsorted",
+       "--varVCFfile", os.path.join(DATA, "var.vcf")]
+# the bundled goldens of the host-finished features: (golden, reads, flags,
+# files); peov also runs with the device stitch engine forced, long on its
+# host route
+FUSION_GOLDENS = [
+    ("se_chim", ["reads_chim.fastq"],
+     ["--outSAMunmapped", "Within", "--chimSegmentMin", "12"],
+     ["Chimeric.out.junction", "Aligned.out.sam"]),
+    ("chim_mult", ["reads_chim.fastq"],
+     ["--outSAMunmapped", "Within", "--chimSegmentMin", "20",
+      "--chimMultimapNmax", "20", "--chimOutType", "Junctions"],
+     ["Chimeric.out.junction", "Aligned.out.sam"]),
+    ("chim_samold", ["reads_chim.fastq"],
+     ["--outSAMunmapped", "Within", "--chimSegmentMin", "20",
+      "--chimOutType", "SeparateSAMold"],
+     ["Chimeric.out.sam"]),
+    ("chim_wbam_old", ["reads_chim.fastq"],
+     ["--outSAMunmapped", "Within", *WBAM, "--chimSegmentMin", "12",
+      "--chimOutType", "WithinBAM",
+      "--outSAMattributes", "NH", "HI", "AS", "nM", "ch"],
+     ["Aligned.out.bam"]),
+    ("chim_wbam_mult", ["reads_chim.fastq"],
+     ["--outSAMunmapped", "Within", *WBAM, "--chimSegmentMin", "20",
+      "--chimMultimapNmax", "20", "--chimOutType", "WithinBAM", "Junctions",
+      "--outSAMattributes", "NH", "HI", "AS", "nM", "NM", "ch"],
+     ["Aligned.out.bam"]),
+    ("var", ["reads_se.fastq"],
+     [*VCF, "--outSAMattributes", "NH", "HI", "AS", "nM", "vA", "vG"],
+     ["Aligned.out.bam"]),
+    ("wasp", ["reads_se.fastq"],
+     [*VCF, "--outSAMattributes", "NH", "HI", "AS", "nM", "vA", "vG", "vW",
+      "--waspOutputMode", "SAMtag"],
+     ["Aligned.out.bam"]),
+    ("peov", ["reads_peov_1.fastq", "reads_peov_2.fastq"],
+     ["--outSAMunmapped", "Within", "--peOverlapNbasesMin", "10"],
+     ["Aligned.out.sam", "SJ.out.tab"]),
+    ("long", ["reads_long.fastq"],
+     ["--outSAMunmapped", "Within", "--tpuLongReads", "1"],
+     ["Aligned.out.sam", "SJ.out.tab"]),
+]
+# --genomeTransformType: (its index golden, its mapping golden, extra flags)
+TRANSFORM_GOLDENS = {
+    "Haploid": ("idx_transform_hap", "tf_hap", []),
+    "Diploid": ("idx_transform_dip", "tf_dip",
+                ["--outSAMattributes", "NH", "HI", "AS", "nM", "ha"])}
+TRANSFORM_INDEX_FILES = ("transformGenomeBlocks.tsv", "chrStart.txt",
+                         "chrLength.txt", "chrName.txt", "exonInfo.tab",
+                         "transcriptInfo.tab", "geneInfo.tab",
+                         "sjdbList.out.tab")
+N_FUSION_PAIRS = 8192     # phase 6's pair set at the chr20 scale
+N_FUSIONS = 16            # planted chr1-chr2 fusions in it
+N_FUSION_HOST = 512       # its first pairs, held against the host oracle
+LONG_ROUTE = "--tpuLongReads: long reads map on the host"
+
+
+def transform_index(ttype, out):
+    """the port's genomeGenerate of the small genome with transform.vcf"""
+    from star_tpu_torch.run import main as star_main
+    star_main(["--runMode", "genomeGenerate", "--genomeDir", out,
+               "--genomeFastaFiles", os.path.join(DATA, "genome.fa"),
+               "--genomeSAindexNbases", "8", "--genomeTransformType", ttype,
+               "--genomeTransformVCF", os.path.join(DATA, "transform.vcf"),
+               "--sjdbGTFfile", os.path.join(DATA, "annot.gtf"),
+               "--sjdbOverhang", "99"])
+
+
+def fusion_goldens(fetch):
+    """phase 6 (a): the goldens of the host-finished features on the card:
+    chimeric detection, SNP tags and WASP (the seed loop on the card, the
+    stitch on the host), peov (the device stitch engine forced), long reads
+    on their host route, and the genome transform (the port's
+    genomeGenerate, then tf_hap / tf_dip with the device stitch engine
+    forced); each case's fetch_window launches"""
+    import shutil
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    cases = [(g, r, f, x, os.path.join(GOLD, "genome_idx"), g == "peov")
+             for g, r, f, x in FUSION_GOLDENS]
+    for ttype, (gidx, gold, extra) in TRANSFORM_GOLDENS.items():
+        idx = os.path.join(WORK, gidx)
+        shutil.rmtree(idx, ignore_errors=True)
+        t0 = time.time()
+        transform_index(ttype, idx)
+        for f in TRANSFORM_INDEX_FILES:
+            if not same_output(idx + "/", os.path.join(GOLD, gidx) + "/", f):
+                raise AssertionError(f"fusion: {gidx}: {f} differs")
+        log(f"fusion: {gidx} built by the port's genomeGenerate: "
+            f"{', '.join(TRANSFORM_INDEX_FILES)} identical "
+            f"({time.time() - t0:.2f} s)")
+        cases.append((gold, ["reads_se.fastq"],
+                      ["--outSAMunmapped", "Within",
+                       "--genomeTransformOutput", "SAM", *extra],
+                      ["Aligned.out.sam", "SJ.out.tab"], idx, True))
+    gate = be.DEVICE_GROW_MIN_RECORDS
+    try:
+        for gold, reads, flags, files, idx, forced in cases:
+            be.DEVICE_GROW_MIN_RECORDS = (
+                {s: 0 for _, s, _ in be.LEVELS} if forced else gate)
+            out = os.path.join(WORK, "fusion_" + gold) + "/"
+            shutil.rmtree(out, ignore_errors=True)
+            P = Parameters(["--genomeDir", idx, "--readFilesIn",
+                            *[os.path.join(DATA, r) for r in reads],
+                            "--outFileNamePrefix", out, *flags])
+            be.LEVEL_STATS.clear()
+            n0 = fetch.LAUNCHES
+            t0 = time.time()
+            align_reads(P, device=DEVICE)
+            for f in files:
+                if not same_output(out, os.path.join(GOLD, gold) + "/", f):
+                    raise AssertionError(f"fusion golden {gold}: {f} differs")
+            n = fetch.LAUNCHES - n0
+            on_card = sum(v for (w, k), v in be.LEVEL_STATS.items()
+                          if k == "device")
+            if gold == "long":
+                with open(out + "Log.out") as f:
+                    if n != 0 or LONG_ROUTE not in f.read():
+                        raise AssertionError("fusion golden long: not on its "
+                                             "logged host route")
+            elif n == 0 or (forced and on_card == 0):
+                raise AssertionError(f"fusion golden {gold}: {n} fetch_window "
+                                     f"launches, {on_card} levels on the "
+                                     "device stitch engine")
+            log(f"fusion: golden {gold}: {', '.join(files)} identical; "
+                f"{n} fetch_window launches"
+                + (f", {on_card} levels on the device stitch engine"
+                   if forced else "")
+                + (" (host route, logged)" if gold == "long" else "")
+                + f", {time.time() - t0:.2f} s")
+    finally:
+        be.DEVICE_GROW_MIN_RECORDS = gate
+
+
+def junction_rows(path):
+    """the chimeric junction rows of a Chimeric.out.junction file"""
+    with open(path) as f:
+        return [l.rstrip("\n").split("\t") for l in f
+                if not l.startswith(("chr_donorA", "#"))]
+
+
+def fusion_scale(torch, np, fetch, tile_fetch, idx, data):
+    """phase 6 (b): fusion detection with STAR-Fusion's flags on the
+    chr20-scale index: a seeded 2 x 100 pair set (fusion_pairs) mapped on the
+    card through the port's entry point; every planted fusion must be
+    reported in Chimeric.out.junction, and the set's first N_FUSION_HOST
+    pairs, mapped again on the card and with the host oracle, must give the
+    same SAM, SJ.out.tab and Chimeric.out.junction.  Returns the main run's
+    launches"""
+    import shutil
+    from star_tpu_torch.align import chimeric, engine
+    from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.ops import device_stitch as ds
+    from star_tpu_torch.ops import pipeline
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    t0 = time.time()
+    r1, r2 = (os.path.join(WORK, f"fusion_{m}.fastq") for m in (1, 2))
+    fusions = fusion_pairs(np, os.path.join(data, "genome.fa"), r1, r2,
+                           N_FUSION_PAIRS, N_FUSIONS, seed=17)
+    gi = GenomeIndex.load(idx)
+    log(f"fusion: {N_FUSION_PAIRS} pairs with {N_FUSIONS} planted fusions "
+        f"made, index loaded ({time.time() - t0:.1f} s)")
+    outs = {k: os.path.join(WORK, "fusion_" + k) + "/"
+            for k in ("scale", "card", "host")}
+    for d in outs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    argv = lambda k, *x: Parameters(["--genomeDir", idx, "--readFilesIn", r1,
+                                     r2, "--outFileNamePrefix", outs[k],
+                                     *FUSION_FLAGS, *x])
+    spent = {"chimeric": 0.0, "pe_merge": 0.0}
+    merged = []
+
+    def timed(key):
+        def wrap(real, *a, **k):
+            t = time.time()
+            out = real(*a, **k)
+            spent[key] += time.time() - t
+            return out
+        return wrap
+
+    def merge(real, self, res, reads):
+        t = time.time()
+        real(self, res, reads)
+        spent["pe_merge"] += time.time() - t
+        merged.append(res.pe_ov_yes)
+
+    pipeline.TIMING = True
+    pipeline.TIMERS.clear()
+    ds.GROW_STATS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fetch.LAUNCHES = 0                       # counts of this slice's main path
+    fetch.ROWS_LAUNCHES = 0
+    tile_fetch.LAUNCHES = 0
+    t0 = time.time()
+    try:
+        with Spy((chimeric, "detect_chimeric_mult", timed("chimeric")),
+                 (chimeric, "detect_chimeric_old", timed("chimeric")),
+                 (engine.ReadAligner, "_pe_overlap_merge_map", merge)):
+            stats = align_reads(argv("scale"), gi=gi, device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        pipeline.TIMING = False
+    wall = time.time() - t0
+    launches = {"fetch_window": fetch.LAUNCHES,
+                "fetch_rows": fetch.ROWS_LAUNCHES,
+                "tile_fetch": tile_fetch.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    t = pipeline.TIMERS
+    rows = junction_rows(outs["scale"] + "Chimeric.out.junction")
+    log(f"fusion: {stats.read_n} pairs in {wall:.2f} s = "
+        f"{stats.read_n / wall:.1f} pairs/s (index upload included); "
+        f"fetch_window launches {launches['fetch_window']} (all in the seed "
+        f"loop: chimeric configs stitch on the host), fetch_rows "
+        f"{launches['fetch_rows']}, tile_fetch {launches['tile_fetch']}; "
+        f"peak device memory {peak} B")
+    log(f"fusion: stages (TIMERS): " + ", ".join(
+        f"{k} {t[k]:.3f} s" for k in ("prepare", "seed_loop", "replay",
+                                      "finish") if k in t)
+        + f"; of finish the PE-merge remap {spent['pe_merge']:.3f} s; "
+        f"chimeric detection {spent['chimeric']:.3f} s")
+    log(f"fusion: {stats.chimeric_all} chimeric reads "
+        f"({len(rows)} junction rows), {sum(merged)} PE-merged reads (mates "
+        f"merged, remapped and kept) of {len(merged)} pairs tried")
+    if (stats.read_n != N_FUSION_PAIRS or launches["fetch_window"] <= 0
+            or any(stitch_launches(ds).values())):
+        raise AssertionError(f"fusion: {stats.read_n} pairs mapped, "
+                             f"{launches['fetch_window']} launches, stitch "
+                             f"engine {stitch_launches(ds)}")
+    if sum(merged) == 0 or stats.chimeric_all == 0:
+        raise AssertionError("fusion: no merged mates or no chimeric read")
+
+    # ---- check 1: every planted fusion in Chimeric.out.junction, at its
+    # breakpoint (the donor's first intron base, the acceptor's last), from
+    # a read whose own sequence crosses it (junction type >= 1)
+    seen = {}
+    for r in rows:
+        if int(r[6]) >= 1:
+            key = frozenset({(r[0], int(r[1])), (r[3], int(r[4]))})
+            seen[key] = seen.get(key, 0) + 1
+    per = [seen.get(frozenset({(ca, a + 1), (cb, b - 1)}), 0)
+           for ca, a, cb, b in fusions]
+    if min(per) == 0:
+        raise AssertionError(f"fusion: planted fusions without a junction "
+                             f"row: {[f for f, n in zip(fusions, per) if not n]}")
+    log(f"fusion: all {N_FUSIONS} planted fusions reported at their "
+        f"breakpoints, {min(per)}-{max(per)} junction-crossing reads each")
+
+    # ---- check 2: the first pairs on the card and with the host oracle
+    sub = ["--readMapNumber", str(N_FUSION_HOST)]
+    pipeline.TIMING = True
+    pipeline.TIMERS.clear()
+    t0 = time.time()
+    try:
+        align_reads(argv("card", *sub), gi=gi, device=DEVICE)
+    finally:
+        pipeline.TIMING = False
+    t_card = time.time() - t0
+    t0 = time.time()
+    align_reads(argv("host", *sub, "--tpuUseDevice", "0"), gi=gi)
+    t_host = time.time() - t0
+    files = ["Aligned.out.sam", "SJ.out.tab", "Chimeric.out.junction"]
+    for f in files:
+        if not same_output(outs["card"], outs["host"], f):
+            raise AssertionError(f"fusion: {f} of the first {N_FUSION_HOST} "
+                                 "pairs differs from the host oracle")
+    log(f"fusion: the first {N_FUSION_HOST} pairs' {', '.join(files)} "
+        f"identical to the host oracle (--tpuUseDevice 0; card {t_card:.2f} "
+        f"s ({', '.join(f'{k} {v:.3f}' for k, v in sorted(t.items()))}), "
+        f"host {t_host:.2f} s, "
+        f"{len(junction_rows(outs['host'] + 'Chimeric.out.junction'))} "
+        "junction rows)")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1260,7 +1650,10 @@ def main():
         annot_goldens(fetch)
         annot = annot_scale(torch, np, fetch, tile_fetch,
                             os.path.join(WORK, "idx"), data)
-        launches = {k: v + annot[k] for k, v in launches.items()}
+        fusion_goldens(fetch)
+        fusion = fusion_scale(torch, np, fetch, tile_fetch,
+                              os.path.join(WORK, "idx"), data)
+        launches = {k: v + annot[k] + fusion[k] for k, v in launches.items()}
         for k in kern:
             k["launches"] = launches[k["name"]]
         ph = replay["fetches"]

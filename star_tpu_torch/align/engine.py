@@ -68,6 +68,8 @@ class ReadAligner:
     def __init__(self, gi: GenomeIndex, P):
         self.gi = gi
         self.P = P
+        self.var = getattr(gi, "var", None)
+        self.wasp_mode = False
         self.wb = WindowBuilder(gi, P)
         self.readLength = [0, 0]
         self.maxScoreMate = [0, 0]
@@ -232,6 +234,13 @@ class ReadAligner:
         res.read1 = reads[0]
         res.read1rc = reads[2]
 
+        # ---- PE mate-overlap merge-remap (reference peOverlapMergeMap);
+        # the WASP remap runs mapOneRead/multMapSelect/mappedFilter only
+        if P.peOverlapNbasesMin > 0 and len(res.seqs) == 2 and not self.wasp_mode:
+            self._pe_overlap_merge_map(res, reads)
+            all_win_tr = res.all_win_tr
+            tr_best = res.tr_best
+
         # ---- multimapper selection (reference multMapSelect)
         max_score = max(w[0].maxScore for w in all_win_tr)
         tr_mult: List[Transcript] = []
@@ -280,7 +289,80 @@ class ReadAligner:
             res.unmap_type = UNMAP_MULTIMAP
         else:
             res.unmap_type = -1
+
+        # ---- WASP allele-swap remap filter (reference waspMap, run after
+        # chimericDetection in oneRead; vW classes)
+        if (getattr(P, "waspYes", False) and not self.wasp_mode
+                and self.var is not None):
+            from .variation import wasp_map
+            res.wasp_type = wasp_map(self, res, reads)
         return res
+
+    def _pe_overlap_merge_map(self, res: ReadResult, reads):
+        """merge overlapping mates, remap as SE, convert windows back to PE
+        (reference ReadAlign_peOverlapMergeMap.cpp)"""
+        from ..constants import NUM_TO_NT, COMPLEMENT, MARK_FRAG_SPACER_BASE
+        from .peoverlap import pe_merge_mates, se_to_pe, align_score
+        from .seed import search_pieces
+        P, gi = self.P, self.gi
+        res.pe_ov_yes = False
+        len0, len1 = res.read_length[0], res.read_length[1]
+        n_ov, mate_start, merged = pe_merge_mates(
+            reads[0], len0, len1, P.peOverlapNbasesMin, P.peOverlapMMp)
+        if n_ov == 0:
+            return
+        if not hasattr(self, "_pe_merge_aligner"):
+            self._pe_merge_aligner = ReadAligner(gi, P)
+            self._pe_merge_aligner.clip_mates = None
+        se = self._pe_merge_aligner
+        lm = len(merged)
+        se_res = ReadResult(name=res.name,
+                            seqs=["".join(NUM_TO_NT[b] for b in merged)],
+                            quals=["I" * lm])
+        se_res.read_length = [lm, 0]
+        se_res.read_length_original = [lm, 0]
+        se_res.lread = lm
+        comp_lut = np.full(256, 0, dtype=np.int8)
+        for i, c in enumerate(COMPLEMENT):
+            comp_lut[i] = c
+        comp_lut[MARK_FRAG_SPACER_BASE] = MARK_FRAG_SPACER_BASE
+        mc = comp_lut[merged]
+        se_reads = (merged, mc, mc[::-1].copy())
+        seeds = search_pieces(gi, P, merged, lm)
+        se.finish_read(se_res, se_reads, seeds)
+        # restore this aligner's per-read state clobbered by the SE pass
+        self.readLength = list(res.read_length)
+        self.outFilterMismatchNmaxTotal = min(
+            P.outFilterMismatchNmax,
+            int(P.outFilterMismatchNoverReadLmax * (self.readLength[0] + self.readLength[1])))
+        if not se_res.all_win_tr:
+            return  # no windows for the merged read (peMergeRA->nW==0)
+        pe_score = res.tr_best.maxScore
+        new_wins = []
+        best = None
+        for win in se_res.all_win_tr:
+            conv = []
+            for t in win:
+                t.Lread = lm
+                nt = se_to_pe(t, mate_start, res.read_length, res.lread)
+                if nt is None or nt.nExons == 0:
+                    continue
+                align_score(nt, reads[0], reads[2], gi.G, P)
+                if conv and nt.maxScore > conv[0].maxScore:
+                    conv.append(conv[0])
+                    conv[0] = nt
+                else:
+                    conv.append(nt)
+            if conv:
+                new_wins.append(conv)
+                if best is None or conv[0].maxScore > best.maxScore:
+                    best = conv[0]
+        if best is None:
+            return
+        res.all_win_tr = new_wins
+        res.tr_best = best
+        if pe_score <= best.maxScore:
+            res.pe_ov_yes = True
 
     def _finish_unmapped(self, res: ReadResult):
         # no-window reads always classify as unmapped-other (reference

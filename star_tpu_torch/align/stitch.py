@@ -717,6 +717,13 @@ class WindowStitcher:
         else:
             tr.iFrag = -1
 
+        # SNP annotation (stitchWindowAligns.cpp:240; score unchanged with
+        # the reference's VAR_noScoreCorrection)
+        var = getattr(ra, "var", None)
+        if var is not None and var.yes:
+            from .variation import variation_adjust
+            variation_adjust(var, tr, R, gi.chr_start)
+
         # record into the window top-list
         if not (score + P.outFilterMultimapScoreRange >= self._win_max_score()
                 or (tr.iFrag >= 0 and score + P.outFilterMultimapScoreRange

@@ -24,9 +24,7 @@ def _load():
     _tried = True
     if os.environ.get("STAR_TPU_NATIVE", "1") == "0":
         return None
-    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    so = os.path.join(pkg, "_build", "libsasort.so")
-    src = os.path.join(os.path.dirname(pkg), "native", "sa_sort.cpp")
+    so, src = _paths()
     if (not os.path.exists(so)
             or (os.path.exists(src)
                 and os.path.getmtime(src) > os.path.getmtime(so))):
@@ -42,38 +40,68 @@ def _load():
                 "SOLUTION: ensure g++ is installed, or set STAR_TPU_NATIVE=0 "
                 "to accept the (much slower) numpy sorter")
     try:
-        lib = ctypes.CDLL(so)
-        lib.sa_sort_suffixes.restype = ctypes.c_int64
-        lib.sa_sort_suffixes.argtypes = [
-            ctypes.POINTER(ctypes.c_int8), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
-        lib.sa_sort_chunked.restype = ctypes.c_int64
-        lib.sa_sort_chunked.argtypes = [
-            ctypes.POINTER(ctypes.c_int8), ctypes.c_int64,
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int]
-        lib.sa_insert_ranks.restype = ctypes.c_int64
-        lib.sa_insert_ranks.argtypes = [
-            ctypes.POINTER(ctypes.c_int8), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
-        lib.sa_insert_ranks_shift.restype = ctypes.c_int64
-        lib.sa_insert_ranks_shift.argtypes = [
-            ctypes.POINTER(ctypes.c_int8), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
-        _lib = lib
-    except OSError:
-        # corrupt/incompatible object: remove it so the next run rebuilds
-        # instead of silently falling back to the Python sorter forever
+        _lib = _bind(so)
+    except (OSError, AttributeError):
+        # corrupt, incompatible or stale object (built before a symbol it
+        # must export was added): remove it and rebuild once from the source
+        # instead of raising or silently falling back to the Python sorter
         try:
             os.unlink(so)
         except OSError:
             pass
         _lib = None
+        if _try_build(so, src):
+            try:
+                _lib = _bind(so)
+            except (OSError, AttributeError):
+                _lib = None
     return _lib
+
+
+def _paths():
+    """(the library in the package's _build/, its source native/sa_sort.cpp)"""
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return (os.path.join(pkg, "_build", "libsasort.so"),
+            os.path.join(os.path.dirname(pkg), "native", "sa_sort.cpp"))
+
+
+def _bind(so: str):
+    """load the library and declare the signatures of its exports; raises
+    OSError for an object that does not load and AttributeError for one
+    that lacks an export (and unloads it, so that a rebuilt object at the
+    same path is loaded anew)"""
+    lib = ctypes.CDLL(so)
+    try:
+        _declare(lib)
+    except AttributeError:
+        import _ctypes
+        _ctypes.dlclose(lib._handle)
+        raise
+    return lib
+
+
+def _declare(lib):
+    lib.sa_sort_suffixes.restype = ctypes.c_int64
+    lib.sa_sort_suffixes.argtypes = [
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
+    lib.sa_sort_chunked.restype = ctypes.c_int64
+    lib.sa_sort_chunked.argtypes = [
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int]
+    lib.sa_insert_ranks.restype = ctypes.c_int64
+    lib.sa_insert_ranks.argtypes = [
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
+    lib.sa_insert_ranks_shift.restype = ctypes.c_int64
+    lib.sa_insert_ranks_shift.argtypes = [
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
 
 
 def _try_build(so: str, src: str) -> bool:

@@ -7,10 +7,12 @@ mode (pass-1 junction discovery + re-insertion, reference:
 twoPassRunPass1.cpp), outFilterType BySJout, SAM / BAM (unsorted and
 coordinate-sorted) / SJ / log outputs, unmapped-read FASTX, GeneCounts and
 TranscriptomeSAM quantification, bedGraph signal, BAM duplicate removal and
-GTF liftOver, single- and paired-end.  The device path runs the seed search
-and the stitch engine on the GPU (ops/pipeline.py DeviceAligner); the host
-runs the rest.  Options whose stages are not ported yet stop the run with a
-message that names them.
+GTF liftOver, chimeric detection (Chimeric.out.junction, SeparateSAMold,
+WithinBAM), the PE mate-overlap merge, long reads, SNP tags and WASP, and the
+STARconsensus genome transform, single- and paired-end.  The device path runs
+the seed search and the stitch engine on the GPU (ops/pipeline.py
+DeviceAligner); the host runs the rest.  Options whose stages are not ported
+yet stop the run with a message that names them.
 
 With pipeline.TIMING on, the host stages of this module add to
 pipeline.TIMERS: sjdb_insert (junction collection, insertion and
@@ -40,12 +42,7 @@ def _not_ported(P: Parameters):
     """options outside this port's slices -> the option names"""
     checks = [
         ("--soloType", P.soloTypeYes),
-        ("--chimSegmentMin", P.chimSegmentMin > 0),
-        ("--varVCFfile", P.varVCFfile != "-"),
-        ("--genomeTransformOutput", P.transformOutYes),
-        ("--peOverlapNbasesMin", P.peOverlapNbasesMin > 0),
         ("--tpuShardedIndex", bool(getattr(P, "tpuShardedIndex", 0))),
-        ("--tpuLongReads", P.longReads),
     ]
     return [name for name, on in checks if on]
 
@@ -57,7 +54,7 @@ def _refuse(names):
 
 def genome_generate(P: Parameters):
     if P.transformTypeN > 0:
-        _refuse(["--genomeTransformVCF / --genomeTransformType"])
+        return _genome_generate_transform(P)
     gi = GenomeIndex.generate(
         P.genomeFastaFiles, chr_bin_nbits=P.genomeChrBinNbits,
         sa_index_nbases=P.genomeSAindexNbases, sa_sparse_d=P.genomeSAsparseD)
@@ -66,6 +63,107 @@ def genome_generate(P: Parameters):
         gi.sjdb_overhang = P.sjdbOverhang
         gi = insert_junctions_from_annotations(gi, P, out_dir=P.genomeDir)
     gi.save(P.genomeDir)
+    return gi
+
+
+def _genome_generate_transform(P: Parameters):
+    """STARconsensus: apply the VCF to the genome, generate the transformed
+    index (+ conversion blocks), then a full index of the original genome in
+    OriginalGenome/ (reference: STAR.cpp:94-102, Genome_transformGenome.cpp)"""
+    import numpy as np
+    from types import SimpleNamespace
+    from .genome.fasta import scan_fasta_files, build_t2
+    from .genome.generate import sort_suffixes, build_sai
+    from .genome.transform import (load_transform_vcf, transform_chr_len_start,
+                                   transform_g_and_blocks, transform_exon_loci,
+                                   write_blocks_tsv)
+    from .genome.gtf import parse_gtf, Annotation
+
+    ttype = P.transformTypeN
+    bin_nb = 1 << P.genomeChrBinNbits
+    G0, names0, chr_start0, chr_len0 = scan_fasta_files(
+        P.genomeFastaFiles, bin_nb)
+
+    ann = None
+    if P.sjdbGTFfile != "-":
+        shell = SimpleNamespace(chr_name=names0, chr_start=chr_start0,
+                                chr_length=chr_len0)
+        ann = parse_gtf(P.sjdbGTFfile, shell, P)
+
+    vcf_h = load_transform_vcf(P.genomeTransformVCF, names0, ttype)
+    per_h = []
+    for ih in range(ttype):
+        per_h.append(transform_chr_len_start(
+            vcf_h[ih], names0, chr_start0, chr_len0, bin_nb))
+
+    if ttype == 1:
+        filt, chr_start1, chr_len1 = per_h[0]
+        Gnew = np.full(chr_start1[-1], 5, dtype=np.int8)
+        blocks = []
+        transform_g_and_blocks(filt, names0, chr_start0, chr_len0,
+                               chr_start1, G0, Gnew, blocks)
+        if ann is not None:
+            ann.exon_loci = transform_exon_loci(ann.exon_loci, blocks)
+        names1 = list(names0)
+        starts1 = np.array(chr_start1, dtype=np.int64)
+        lens1 = np.array(chr_len1, dtype=np.int64)
+    else:
+        (f0, cs0_, cl0_), (f1, cs1_, cl1_) = per_h
+        off = cs0_[-1]
+        cs1_off = [c + off for c in cs1_]
+        Gnew = np.full(cs1_off[-1], 5, dtype=np.int8)
+        blocks = []
+        transform_g_and_blocks(f0, names0, chr_start0, chr_len0,
+                               cs0_, G0, Gnew, blocks)
+        blocks1 = []
+        transform_g_and_blocks(f1, names0, chr_start0, chr_len0,
+                               cs1_off, G0, Gnew, blocks1)
+        if ann is not None:
+            nTr, nGe = len(ann.transcript_id), len(ann.gene_id)
+            ex0 = transform_exon_loci(ann.exon_loci, blocks)
+            ex1 = transform_exon_loci(ann.exon_loci, blocks1)
+            if len(ex1):
+                ex1[:, 0] += nTr
+                ex1[:, 3] += nGe
+            ann = Annotation(
+                transcript_id=[t + "_h1" for t in ann.transcript_id]
+                + [t + "_h2" for t in ann.transcript_id],
+                transcript_strand=ann.transcript_strand * 2,
+                gene_id=[g + "_h1" for g in ann.gene_id]
+                + [g + "_h2" for g in ann.gene_id],
+                gene_attr=ann.gene_attr * 2,
+                exon_loci=np.concatenate([ex0, ex1], axis=0))
+        blocks = blocks + blocks1
+        names1 = [n + "_h1" for n in names0] + [n + "_h2" for n in names0]
+        starts1 = np.array(cs0_[:-1] + cs1_off, dtype=np.int64)
+        lens1 = np.array(cl0_ + cl1_, dtype=np.int64)
+
+    os.makedirs(P.genomeDir, exist_ok=True)
+    write_blocks_tsv(os.path.join(P.genomeDir, "transformGenomeBlocks.tsv"),
+                     blocks)
+
+    t2 = build_t2(Gnew)
+    sai = build_sai(t2, sa := sort_suffixes(t2), P.genomeSAindexNbases)
+    gi = GenomeIndex(
+        G=Gnew, t2=t2, sa=sa,
+        sai_level_start=sai["level_start"], sai_val=sai["val"],
+        sai_absent=sai["absent"], sai_nbit=sai["nbit"],
+        chr_name=names1, chr_start=starts1, chr_length=lens1,
+        chr_bin_nbits=P.genomeChrBinNbits,
+        sa_index_nbases=P.genomeSAindexNbases, sa_sparse_d=P.genomeSAsparseD)
+    if P.sjdbGTFfile != "-" or P.sjdbFileChrStartEnd[0] != "-":
+        from .genome.sjdb import insert_junctions_from_annotations
+        gi.sjdb_overhang = P.sjdbOverhang
+        gi = insert_junctions_from_annotations(gi, P, out_dir=P.genomeDir,
+                                               ann=ann)
+    gi.transform_type = ttype
+    gi.save(P.genomeDir)
+
+    # full original-genome index alongside (reference STAR.cpp:94-102)
+    P2 = P.clone(genomeTransformType="None", genomeTransformVCF="-",
+                 genomeDir=os.path.join(P.genomeDir, "OriginalGenome"))
+    P2.transformTypeN = 0
+    genome_generate(P2)
     return gi
 
 
@@ -182,6 +280,12 @@ def align_reads(P: Parameters, gi: Optional[GenomeIndex] = None,
             gi = insert_junctions(base, sjdb, P, out_dir=_tmp_dir(P))
             _sjdb_insert_save(gi, P)
 
+    # variation (VCF SNVs) for vA/vG tags and WASP (STAR.cpp:139-142)
+    if P.varVCFfile != "-":
+        from .align.variation import Variation
+        gi.var = Variation(
+            P, gi.chr_start, {n: i for i, n in enumerate(gi.chr_name)})
+
     return _run_mapping(P, gi, use_device, device)
 
 
@@ -202,16 +306,33 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
 
     stats = RunStats()
     stats.time_start_map = time.time()
+
+    # STARconsensus: load the original genome + conversion blocks; all
+    # coordinate-bearing outputs switch to it (reference: STAR.cpp:138-142,
+    # Genome_genomeLoad.cpp:444-462)
+    gen_out = None
+    gi_o = gi
+    if P.transformOutYes:
+        from .genome.transform import GenomeOut
+        if getattr(gi, "transform_type", 0) == 0:
+            raise SystemExit(
+                "EXITING because of FATAL INPUT ERROR: outTransformOutput is "
+                "set, but the genome was generated without transformation\n"
+                "SOLUTION: use the default --genomeTransformOutput None, or "
+                "re-generate the genome with transformation options.")
+        gen_out = GenomeOut.load(P.genomeDir, gi.transform_type,
+                                 len(gi.chr_name))
+        gi_o = gen_out.gi
     P._transform_type = getattr(gi, "transform_type", 0)
 
-    sj = SJCollector(P, gi)     # final SJ.out.tab records
+    sj = SJCollector(P, gi_o)   # final SJ.out.tab records
     sj1 = SJCollector(P, gi)    # BySJout stage-1 records (all reads)
     # SAM text streams to disk as reads finish (bounded memory; the
     # reference's mutex-serialized SAM flush, ReadAlignChunk_processChunks)
     sam_on = (P.outSAMbool and P.outSAMtype[0] != "None"
               and P.outSAMmode != "None")
     sam_lines = _SamSink(prefix + "Aligned.out.sam" if sam_on else None,
-                         sam_header(gi, P) if sam_on else "")
+                         sam_header(gi_o, P) if sam_on else "")
     log_out = _LogOut(prefix + "Log.out", P)
     stats.open_progress(prefix + "Log.progress.out")
     log_out.line("started mapping")
@@ -242,6 +363,22 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
 
     if use_device is None:
         use_device = bool(P.tpuUseDevice)
+    if P.longReads and use_device:
+        # STARlong: reads up to 500 kb would force huge static probe shapes;
+        # the host seed loop + seed-chain DP handles them (align/stitch.py
+        # stitch_window_seeds), as in the JAX package
+        use_device = False
+        log_out.line("--tpuLongReads: long reads map on the host (seed-chain "
+                     "DP, align/stitch.py stitch_window_seeds), not on the "
+                     "device")
+
+    chim_stream = None
+    chim_lines = []
+    chim_sam_lines = []
+    if P.chimSegmentMin > 0 and P.outFilterBySJoutStage <= 1:
+        from .align.chimeric import (detect_chimeric_old, align_score,
+                                     junction_line)
+        chim_stream = (detect_chimeric_old, align_score, junction_line)
 
     by_sjout = P.outFilterBySJoutStage == 1
     held = []
@@ -251,9 +388,9 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
         unmapped_streams = [open(prefix + f"Unmapped.out.mate{i+1}", "w")
                             for i in range(P.readNmates)]
 
-    def quant(res):
+    def quant(res, q_trs):
         if gene_counts is not None:
-            gene_counts.add_read(res.transcripts, res.n_tr)
+            gene_counts.add_read(*(q_trs or (res.transcripts, res.n_tr)))
         if tr_sam is not None:
             quantt, enc, shim, w, rng = tr_sam
             mm_max = min(P.outFilterMismatchNmax,
@@ -267,16 +404,90 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
                     w.write(r)
 
     def emit(res):
+        # chimeric detection runs for every read with windows, including
+        # reads failing the linear filters (reference: oneRead order)
+        chim_recorded = False
+        if chim_stream is not None and getattr(res, "read1", None) is not None:
+            detect, ascore, jline = chim_stream
+            if P.chimMultimapNmax == 0:
+                chim = detect(res, res.all_win_tr, bytes(res.read1), gi, P)
+                if chim is not None:
+                    chim_recorded = True
+                    stats.chimeric_all += 1
+                    for t in chim.tr:
+                        ascore(t, bytes(res.read1), bytes(res.read1rc), gi, P)
+                    if P.chimOutTypeWithinBAM and bam is not None:
+                        from .io.bam import encode_chimeric
+                        bam.add_chimeric(
+                            encode_chimeric(chim.tr[0], chim.tr[1], res, 0, 1,
+                                            True, gi, P),
+                            getattr(res, "i_read_all", 0), 0)
+                    if P.chimOutTypeJunctions:
+                        chim_lines.append(jline(chim, res, gi, P))
+                    if P.chimOutTypeSAMold:
+                        chim_sam_lines.extend(
+                            _chimeric_sam_old(chim.tr, res, gi, P))
+            elif res.tr_best.maxScore <= (res.read_length[0]
+                                          + res.read_length[1]
+                                          - P.chimNonchimScoreDropMin):
+                # multimapping chimeras (chimericDetectionMult)
+                from .align.chimeric import (detect_chimeric_mult,
+                                             junction_line_mult)
+                found = detect_chimeric_mult(
+                    res, res.all_win_tr, bytes(res.read1),
+                    bytes(res.read1rc), gi, P)
+                if found is not None:
+                    recs, chim_n, best_i, min_score = found
+                    chim_recorded = True
+                    stats.chimeric_all += 1
+                    best_score = recs[best_i].chimScore
+                    max_possible = res.read_length[0] + res.read_length[1]
+                    i_tr = 0
+                    for i, ch in enumerate(recs):
+                        if ch.chimScore < min_score:
+                            continue
+                        if P.chimOutTypeJunctions:
+                            chim_lines.append(junction_line_mult(
+                                ch, res, gi, P, chim_n, res.tr_best.maxScore,
+                                False, best_score, max_possible))
+                        if P.chimOutTypeWithinBAM and bam is not None:
+                            from .io.bam import encode_chimeric
+                            bam.add_chimeric(
+                                encode_chimeric(ch.al1, ch.al2, res, i_tr,
+                                                chim_n, i == best_i, gi, P),
+                                getattr(res, "i_read_all", 0), i_tr)
+                        i_tr += 1
+        if chim_recorded and P.chimOutTypeWithinBAM:
+            # the recorded chimera contains the representative portion, so
+            # the non-chimeric alignment is not output (oneRead.cpp:99-101)
+            return
+        q_trs = None
+        if gen_out is not None:
+            # STARconsensus back-conversion (reference ReadAlign_transformGenome
+            # runs for every read with 0 < nTr <= outFilterMultimapNmax; the
+            # unmapped-within record then reports the converted best)
+            from .genome.transform import read_transform
+            read_transform(res, gen_out, P)
+            q_trs = ((res.transcripts_out, res.n_tr_out)
+                     if P.transformOutQuant else (res.transcripts, res.n_tr))
+            stats_set = (res.transcripts_out, res.n_tr_out)
+            if P.transformOutSAM:
+                res.transcripts = res.transcripts_out
+                res.n_tr = res.n_tr_out
+                if res.tr_best_out is not None:
+                    res.tr_best = res.tr_best_out
+        else:
+            stats_set = None
         if res.unmap_type < 0:
             sj.add_read(res.transcripts, res.n_tr)
-            stats.add_mapped(res)
+            stats.add_mapped(res, override=stats_set)
             if trm is not None:
                 with _tick("quant"):
-                    quant(res)
+                    quant(res, q_trs)
         if bam is not None:
             with _tick("bam_encode"):
                 bam.add_read(res)
-        write_read_sam(res, gi, P, sam_lines)
+        write_read_sam(res, gi_o, P, sam_lines)
         if res.unmap_type >= 0:
             stats.add_unmapped(res)
             if unmapped_streams is not None:
@@ -348,6 +559,21 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
         n_unmapped = (stats.unmapped_mm + stats.unmapped_short
                       + stats.unmapped_other + stats.unmapped_multi)
         gene_counts.write(prefix + "ReadsPerGene.out.tab", n_unmapped)
+    if chim_stream is not None and P.chimOutTypeSAMold:
+        with open(prefix + "Chimeric.out.sam", "w") as f:
+            f.write(sam_header(gi_o, P))
+            for l in chim_sam_lines:
+                f.write(l + "\n")
+    if chim_stream is not None and P.chimOutTypeJunctions:
+        with open(prefix + "Chimeric.out.junction", "w") as f:
+            if P.chimMultimapNmax > 0:
+                # column header only in multimapping mode
+                # (reference ParametersChimeric_initialize.cpp:48-71)
+                f.write("chr_donorA\tbrkpt_donorA\tstrand_donorA\tchr_acceptorB\tbrkpt_acceptorB\tstrand_acceptorB\tjunction_type\trepeat_left_lenA\trepeat_right_lenB\tread_name\tstart_alnA\tcigar_alnA\tstart_alnB\tcigar_alnB\tnum_chim_aln\tmax_poss_aln_score\tnon_chim_aln_score\tthis_chim_aln_score\tbestall_chim_aln_score\tPEmerged_bool\treadgrp\n")
+            for l in chim_lines:
+                f.write(l + "\n")
+            if P.chimOutJunctionFormat == 1:
+                f.write(f"# Nreads {stats.read_n}\tNreadsUnique {stats.mapped_reads_u}\tNreadsMulti {stats.mapped_reads_m}\n")
     with open(prefix + "Log.final.out", "w") as f:
         f.write(stats.report_final())
     log_out.line("finished successfully")
@@ -466,6 +692,41 @@ def _align_all(P: Parameters, gi: GenomeIndex, stats: RunStats,
             stats.add_read(res)
             n += 1
             yield res
+
+
+def _chimeric_sam_old(tr_chim, res, gi, P):
+    """Chimeric.out.sam records for the two chimeric segments (reference
+    ReadAlign_chimericDetectionOldOutput.cpp:18-59): primary-flag selection,
+    then outputTranscriptSAM with nTr=2 and PE mate fields."""
+    from .io.sam import transcript_sam
+    t0, t1 = tr_chim[0], tr_chim[1]
+    if t0.exons[0][3] != t0.exons[-1][3]:
+        t0.primaryFlag, t1.primaryFlag = True, False
+    elif t1.exons[0][3] != t1.exons[-1][3]:
+        t1.primaryFlag, t0.primaryFlag = True, False
+    elif t0.exons[0][3] != t1.exons[0][3]:
+        t0.primaryFlag = t1.primaryFlag = True
+    else:
+        rep = 0 if t0.maxScore > t1.maxScore else 1
+        tr_chim[rep].primaryFlag = True
+        tr_chim[1 - rep].primaryFlag = False
+    lines = []
+    for i_tr in range(2):
+        tr = tr_chim[i_tr]
+        other = tr_chim[1 - i_tr]
+        if len(res.seqs) == 2:
+            iex = 0
+            if other.exons[0][3] != other.exons[-1][3]:
+                while iex < other.nExons and \
+                        other.exons[iex][3] == tr.exons[0][3]:
+                    iex += 1
+            lines.append(transcript_sam(
+                tr, res, 2, i_tr, gi, P, mate_chr=other.Chr,
+                mate_start=other.exons[iex][1],
+                mate_strand=int(other.Str != other.exons[iex][3])))
+        else:
+            lines.append(transcript_sam(tr, res, 2, i_tr, gi, P))
+    return lines
 
 
 def main(argv=None):

@@ -4,7 +4,8 @@ versions, the MMP search on the card
 against the host oracle, the device grow on the card against the numpy
 grow, the device finalize, select and pack on the card against the same
 engine on CPU tensors, and two-pass mapping, GeneCounts and BAM output on the
-card against the goldens.  They skip where no card is present.  This file
+card against the goldens, chimeric detection and the mate-overlap merge on
+the card against the goldens.  They skip where no card is present.  This file
 imports neither jax nor star_tpu, so on a machine with a card and no jax it
 runs as
 
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ANNOT_GOLDENS, same_output
+from chip_smoke import ANNOT_GOLDENS, FUSION_GOLDENS, same_output
 from star_tpu_torch.ops import fetch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -323,5 +324,39 @@ def test_annotation_outputs_on_card_match_goldens(cuda, tmp_path, monkeypatch,
     align_reads(P, device=cuda)
     assert len(launches) == (2 if "--twopassMode" in extra else 1)
     assert min(launches) > 0
+    for f in files:
+        assert same_output(prefix, os.path.join(GOLD, gold) + "/", f), f
+
+
+FUSION_CASES = [c for c in FUSION_GOLDENS if c[0] in ("se_chim", "peov")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gold,reads,flags,files", FUSION_CASES,
+                         ids=[c[0] for c in FUSION_CASES])
+def test_host_finished_features_on_card_match_goldens(cuda, tmp_path,
+                                                      monkeypatch, gold, reads,
+                                                      flags, files):
+    """chimeric detection after the seed loop on the card, and the PE
+    mate-overlap merge after the device stitch engine (forced on every
+    level): byte-identical to the goldens, with fetch_window launched"""
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    monkeypatch.delenv("STAR_TPU_DEVICE_STITCH", raising=False)
+    monkeypatch.setattr(be, "DEVICE_GROW_MIN_RECORDS",
+                        {s_max: 0 for _, s_max, _ in be.LEVELS})
+    be.LEVEL_STATS.clear()
+    prefix = str(tmp_path) + "/"
+    P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
+                    "--readFilesIn",
+                    *[os.path.join(ROOT, "tests", "data", "small", r)
+                      for r in reads],
+                    "--outFileNamePrefix", prefix, *flags])
+    n0 = fetch.LAUNCHES
+    align_reads(P, device=cuda)
+    assert fetch.LAUNCHES > n0
+    on_card = sum(v for (w, k), v in be.LEVEL_STATS.items() if k == "device")
+    assert on_card > 0 if gold == "peov" else on_card == 0
     for f in files:
         assert same_output(prefix, os.path.join(GOLD, gold) + "/", f), f

@@ -57,26 +57,28 @@ def test_options_outside_the_slice_are_refused(tmp_path):
     from star_tpu_torch.params import Parameters
     from star_tpu_torch.run import align_reads
     P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
-                    "--readFilesIn", "none.fastq", "--chimSegmentMin", "12",
-                    "--quantMode", "GeneCounts",
+                    "--readFilesIn", "none.fastq", "--tpuShardedIndex", "1",
+                    "--chimSegmentMin", "12", "--quantMode", "GeneCounts",
                     "--outFileNamePrefix", str(tmp_path) + "/"])
-    with pytest.raises(SystemExit, match="not yet ported.*chimSegmentMin$"):
+    with pytest.raises(SystemExit, match="not yet ported.*tpuShardedIndex$"):
         align_reads(P, device="cpu")
 
 
 REFUSED = [
     (["--soloType", "CB_UMI_Simple"], "--soloType"),
-    (["--chimSegmentMin", "12"], "--chimSegmentMin"),
-    (["--varVCFfile", os.path.join(DATA, "var.vcf")], "--varVCFfile"),
-    (["--genomeTransformOutput", "SAM"], "--genomeTransformOutput"),
-    (["--peOverlapNbasesMin", "5"], "--peOverlapNbasesMin"),
     (["--tpuShardedIndex", "1"], "--tpuShardedIndex"),
-    (["--tpuLongReads", "1"], "--tpuLongReads"),
     (["--runMode", "soloCellFiltering"], "--runMode soloCellFiltering"),
-    (["--runMode", "genomeGenerate", "--genomeTransformType", "Haploid",
-      "--genomeTransformVCF", os.path.join(DATA, "transform.vcf"),
-      "--genomeFastaFiles", os.path.join(DATA, "genome.fa")],
-     "--genomeTransformVCF"),
+]
+
+# options of the slices ported so far that an earlier slice refused
+PORTED = [
+    ["--chimSegmentMin", "12"],
+    ["--varVCFfile", os.path.join(DATA, "var.vcf")],
+    ["--varVCFfile", os.path.join(DATA, "var.vcf"),
+     "--waspOutputMode", "SAMtag", "--outSAMtype", "BAM", "Unsorted"],
+    ["--genomeTransformOutput", "SAM"],
+    ["--peOverlapNbasesMin", "5"],
+    ["--tpuLongReads", "1"],
 ]
 
 
@@ -96,6 +98,17 @@ def test_not_ported_names_each_refused_option(tmp_path, flags, name):
     assert not os.path.exists(out)
 
 
+@pytest.mark.parametrize("flags", PORTED, ids=[f[0] for f in PORTED[:2]]
+                         + ["--waspOutputMode"] + [f[0] for f in PORTED[3:]])
+def test_ported_options_pass_the_gate(flags):
+    """the options of this slice reach the mapping: nothing refuses them"""
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import _not_ported
+    P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
+                    "--readFilesIn", "none.fastq", *flags])
+    assert _not_ported(P) == []
+
+
 def test_port_modules_import_without_jax_or_star_tpu():
     """every module of star_tpu_torch imports in a fresh interpreter, and
     neither jax nor star_tpu is in sys.modules after"""
@@ -108,7 +121,9 @@ def test_port_modules_import_without_jax_or_star_tpu():
         and not p.endswith("__main__.py"))
     assert {"star_tpu_torch.genome.sjdb", "star_tpu_torch.io.bam",
             "star_tpu_torch.quant.trsam", "star_tpu_torch.utils.rng",
-            "star_tpu_torch.io.liftover"} <= set(mods)
+            "star_tpu_torch.io.liftover", "star_tpu_torch.align.peoverlap",
+            "star_tpu_torch.align.chimeric", "star_tpu_torch.align.variation",
+            "star_tpu_torch.genome.transform"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
