@@ -83,11 +83,41 @@ in order; any failure ends the run with a non-zero exit and no result line:
              its breakpoint in Chimeric.out.junction, and the first 512
              pairs mapped on the card and with the host oracle
              (--tpuUseDevice 0) must give the same SAM, SJ.out.tab and
-             Chimeric.out.junction.
+             Chimeric.out.junction;
+  7. solo    STARsolo on cuda: every golden of SOLO_GOLDENS (CB_UMI_Simple
+             with every UMI dedup type, multimappers, MultiGeneUMI filters,
+             EmptyDrops_CR, multi-feature runs, CB/UB-tagged BAMs and
+             Transcript3p; CB_UMI_Complex; SmartSeq; CB_samTagOut) with the
+             device stitch engine forced on every level, trees byte for
+             byte and BAMs record for record, fetch_window launches per
+             golden, and --runMode soloCellFiltering through main; then a
+             10x Chromium v3 run on phase 5's saved pass-2 index (its 1,000
+             eleven-exon synthetic genes): 32,768 seeded 91-base cDNA reads
+             and their 28-base barcodes (solo_reads: 1,000 cells, 5,000
+             ambient barcodes, a 20,000-barcode whitelist, 10 % of the
+             cDNA reads led by a template-switch oligo and 5 % ending in
+             polyA), two batches, with
+             Cell Ranger 4's STARsolo flags (SOLO_CR4_FLAGS: Gene and
+             GeneFull, 1MM_CR, MultiGeneUMI_CR, EmptyDrops_CR, the CellRanger4
+             clip, a CB/UB-tagged sorted BAM): reads/s, the stages (TIMERS
+             prepare, seed_loop, per level stitch, finish, solo_count,
+             solo_process, bam_finish), the device engine's levels,
+             fetch_window launches, peak device memory, cells called, median
+             UMIs per cell and reads with valid barcodes (Summary.csv); a
+             level must run on the card, the grow launch fetch_window, Gene
+             and GeneFull count, EmptyDrops_CR simulate; the first 4,096
+             reads prepared with the CellRanger4 clip of a whole batch (the
+             device path's) and read by read (the host oracle's) must give
+             the same clips and reads (both timed); the first 4,096 reads
+             mapped on the card (stitch engine forced) and with the numpy
+             engine must give the same Solo.out tree and sorted BAM, and the
+             first 1,024 mapped on the card and with the host oracle
+             (--tpuUseDevice 0) too.
 
 Then one JSON line of kernel measurements (launches: those of phase 4's
-batch, phase 5's two-pass run and phase 6's pair set), the card's name and power limit
-(nvidia-smi), and as the last line {"ok": true, "device": {...}}.
+batch, phase 5's two-pass run, phase 6's pair set and phase 7's single-cell
+run), the card's name and power limit (nvidia-smi), and as the last line
+{"ok": true, "device": {...}}.
 Generated data, the index and outputs stay under star_tpu_torch/_build/.
 """
 import itertools
@@ -1614,6 +1644,599 @@ def fusion_scale(torch, np, fetch, tile_fetch, idx, data):
     return launches
 
 
+
+# ---- phase 7: STARsolo
+TESTS = os.path.join(ROOT, "tests")
+S3 = os.path.join(TESTS, "data", "solo3")
+SC = os.path.join(TESTS, "data", "soloC")
+SOLO_BC = ["--soloCBstart", "1", "--soloCBlen", "16", "--soloUMIstart", "17",
+           "--soloUMIlen", "12"]
+SMALL_SOLO = ["--readFilesIn", os.path.join(DATA, "solo_cdna.fastq"),
+              os.path.join(DATA, "solo_bc.fastq"), "--soloType",
+              "CB_UMI_Simple", "--soloCBwhitelist",
+              os.path.join(DATA, "solo_wl.txt"), *SOLO_BC]
+SOLO3 = ["--readFilesIn", os.path.join(S3, "cdna.fastq"),
+         os.path.join(S3, "bc.fastq"), "--soloType", "CB_UMI_Simple",
+         "--soloCBwhitelist", os.path.join(S3, "wl.txt"), *SOLO_BC,
+         "--outSAMtype", "None"]
+SOLO_COMPLEX = ["--readFilesIn", os.path.join(SC, "cdna.fastq"),
+                os.path.join(SC, "bc.fastq"), "--soloType", "CB_UMI_Complex",
+                "--soloCBwhitelist", os.path.join(SC, "wl1.txt"),
+                os.path.join(SC, "wl2.txt"),
+                "--soloCBposition", "0_0_2_-1", "3_1_3_8",
+                "--soloUMIposition", "3_9_3_14",
+                "--soloAdapterSequence", "GAGTGATTGCTT",
+                "--outSAMtype", "None", "--soloCellFilter", "TopCells", "6"]
+SOLO_ATTRS = ["--outSAMattributes", "NH", "HI", "AS", "nM", "CR", "CY", "UR",
+              "UY", "GX", "GN"]
+IDX_GTF = os.path.join(GOLD, "genome_idx_gtf")
+IDX_S3 = os.path.join(TESTS, "golden", "solo3", "idx")
+SOLO_ED_INDEX = "solo_ed"      # built by solo_ed_index (genome.fa + annot2.gtf)
+# the STARsolo goldens: (case, golden directory under tests/golden, index,
+# flags, files).  A file ending in "/" is a tree, compared file by file; a
+# pair is (output, golden) where their names differ.
+SOLO_GOLDENS = [
+    ("solo", "small/solo", IDX_GTF, [*SMALL_SOLO, "--outSAMtype", "None"],
+     ["Solo.out/"]),
+    ("solo3_dedup", "solo3/dedup", IDX_S3,
+     [*SOLO3, "--soloCellFilter", "TopCells", "8", "--soloUMIdedup",
+      "NoDedup", "Exact", "1MM_All", "1MM_Directional", "1MM_CR",
+      "1MM_Directional_UMItools"], ["Solo.out/"]),
+    ("solo3_mm", "solo3/mm", IDX_S3,
+     [*SOLO3, "--soloCellFilter", "TopCells", "8", "--soloMultiMappers",
+      "Uniform", "Rescue", "PropUnique", "EM", "--soloCellReadStats",
+      "Standard"], ["Solo.out/"]),
+    ("solo3_mgumi", "solo3/mgumi", IDX_S3,
+     [*SOLO3, "--soloCellFilter", "TopCells", "8", "--soloUMIfiltering",
+      "MultiGeneUMI"], ["Solo.out/"]),
+    ("solo3_mgumicr", "solo3/mgumicr", IDX_S3,
+     [*SOLO3, "--soloCellFilter", "TopCells", "8", "--soloUMIfiltering",
+      "MultiGeneUMI_CR", "--soloUMIdedup", "1MM_CR"], ["Solo.out/"]),
+    ("solo_ed", "small/solo_ed", SOLO_ED_INDEX,
+     ["--readFilesIn", os.path.join(DATA, "solo2_cdna.fastq"),
+      os.path.join(DATA, "solo2_bc.fastq"), "--soloType", "CB_UMI_Simple",
+      "--soloCBwhitelist", os.path.join(DATA, "solo2_wl.txt"), *SOLO_BC,
+      "--outSAMtype", "None", "--soloCellFilter", "EmptyDrops_CR", "60",
+      "0.99", "10", "100", "400", "10", "0.01", "200", "0.01", "300"],
+     ["Solo.out/"]),
+    ("solo_feat", "small/solo_feat", IDX_GTF,
+     [*SMALL_SOLO, "--outSAMtype", "None", "--soloFeatures", "Gene",
+      "GeneFull", "GeneFull_ExonOverIntron", "GeneFull_Ex50pAS", "SJ",
+      "Velocyto", "--soloCellReadStats", "Standard"], ["Solo.out/"]),
+    ("solo_tags", "small/solo_tags", IDX_GTF,
+     [*SMALL_SOLO, "--outSAMtype", "BAM", "SortedByCoordinate",
+      *SOLO_ATTRS, "CB", "UB"],
+     ["Aligned.sortedByCoord.out.bam", "Solo.out/"]),
+    ("solo_tags_unsorted", "small/solo_tags", IDX_GTF,
+     [*SMALL_SOLO, "--outSAMtype", "BAM", "Unsorted", "--outSAMunmapped",
+      "Within", *SOLO_ATTRS, "gx", "gn"],
+     [("Aligned.out.bam", "un_Aligned.out.bam")]),
+    ("cb_samtag", "small/cb_samtag", IDX_GTF,
+     ["--readFilesIn", os.path.join(DATA, "solo_cdna.fastq"),
+      os.path.join(DATA, "solo_bc.fastq"), "--soloType", "CB_samTagOut",
+      "--soloCBwhitelist", os.path.join(DATA, "solo_wl.txt"), *SOLO_BC,
+      "--soloCBmatchWLtype", "1MM", "--outSAMattributes", "NH", "HI", "AS",
+      "nM", "CR", "CY", "CB", "--outSAMtype", "BAM", "Unsorted",
+      "--outSAMunmapped", "Within"], ["Aligned.out.bam"]),
+    ("soloC_mm1", "soloC/mm1", IDX_S3,
+     [*SOLO_COMPLEX, "--soloCBmatchWLtype", "1MM"], ["Solo.out/"]),
+    ("soloC_exact", "soloC/exact", IDX_S3,
+     [*SOLO_COMPLEX, "--soloCBmatchWLtype", "Exact"], ["Solo.out/"]),
+    ("soloC_ed2", "soloC/ed2", IDX_S3,
+     [*SOLO_COMPLEX, "--soloCBmatchWLtype", "EditDist_2"], ["Solo.out/"]),
+    ("smartseq", "smartseq", IDX_GTF,
+     ["--readFilesManifest",
+      os.path.join(TESTS, "data", "smartseq", "manifest.tsv"),
+      "--soloType", "SmartSeq", "--soloUMIdedup", "Exact", "NoDedup",
+      "--soloStrand", "Unstranded", "--soloFeatures", "Gene",
+      "--soloCellFilter", "None", "--outSAMtype", "None"], ["Solo.out/"]),
+    ("solo3_tr3p", "solo3/tr3p", IDX_S3,
+     [*SOLO3, "--soloFeatures", "Gene", "Transcript3p", "--soloCellFilter",
+      "None", "--soloClusterCBfile", os.path.join(S3, "clusters.tsv")],
+     [("Solo.out/Transcript3p/" + f, f) for f in
+      ("matrix.mtx", "features.tsv",
+       "transcriptEndDistanceDistribution.txt")]),
+]
+# --runMode soloCellFiltering of solo3/mgumi's raw matrix (EmptyDrops_CR)
+SOLO_CELLFILT = ["--soloCellFilter", "EmptyDrops_CR", "8", "0.99", "10", "100",
+                 "400", "10", "0.01", "200", "0.01", "300"]
+
+
+def solo_ed_index(out):
+    """the solo_ed golden's index: the port's genomeGenerate of the small
+    genome with annot2.gtf"""
+    from star_tpu_torch.run import main as star_main
+    star_main(["--runMode", "genomeGenerate", "--genomeDir", out,
+               "--genomeFastaFiles", os.path.join(DATA, "genome.fa"),
+               "--genomeSAindexNbases", "8", "--sjdbGTFfile",
+               os.path.join(DATA, "annot2.gtf"), "--sjdbOverhang", "79"])
+
+
+def file_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def golden_file(path):
+    """path, or, for a golden symlink into a checkout's tests/golden
+    (Solo.out/SJ/raw/features.tsv links to its run's SJ.out.tab by an
+    absolute path), the same file in this checkout, whether or not the
+    link's own target exists"""
+    if os.path.islink(path):
+        target = os.readlink(path)
+        if "/tests/golden/" in target:
+            return os.path.join(TESTS, "golden",
+                                target.split("/tests/golden/", 1)[1])
+    return path
+
+
+def tree_diff(a, b):
+    """the files of tree b that are missing from tree a or differ"""
+    out = []
+    for root, _, files in os.walk(b):
+        for fn in sorted(files):
+            rel = os.path.relpath(os.path.join(root, fn), b)
+            if not os.path.exists(os.path.join(a, rel)):
+                out.append(rel + " (missing)")
+            elif file_bytes(os.path.join(a, rel)) != \
+                    file_bytes(golden_file(os.path.join(b, rel))):
+                out.append(rel)
+    return out
+
+
+def solo_diff(out, gold, files):
+    """the files of a solo case's output prefix that differ from its golden
+    (trees file by file, BAMs record for record)"""
+    bad = []
+    for f in files:
+        o, g = f if isinstance(f, tuple) else (f, f)
+        if o.endswith("/"):
+            bad += [o + x for x in tree_diff(out + o, os.path.join(gold, g))]
+        elif not os.path.exists(out + o) or not (
+                bam_records(out + o) == bam_records(os.path.join(gold, g))
+                if o.endswith(".bam") else
+                file_bytes(out + o) == file_bytes(os.path.join(gold, g))):
+            bad.append(o)
+    return bad
+
+
+def solo_cellfilt(out):
+    """--runMode soloCellFiltering through the port's main on solo3/mgumi's
+    raw matrix; the files that differ from the cellfilt golden"""
+    from star_tpu_torch.run import main as star_main
+    gold = os.path.join(TESTS, "golden", "solo3")
+    star_main(["--runMode", "soloCellFiltering",
+               os.path.join(gold, "mgumi", "Solo.out", "Gene", "raw"),
+               out + "out_", *SOLO_CELLFILT, "--outFileNamePrefix",
+               out + "log_"])
+    return [f for f in ("barcodes.tsv", "features.tsv", "matrix.mtx")
+            if file_bytes(out + "out_" + f)
+            != file_bytes(os.path.join(gold, "cellfilt", "out_" + f))]
+
+
+
+N_SOLO_READS = 32768      # phase 7's cDNA reads: two full tpuBatchSize batches
+N_SOLO_ORACLE = 4096      # its first reads, held against the numpy engine
+N_SOLO_HOST = 1024        # its first reads, held against the host oracle
+SOLO_CELLS = 1000         # cells of the single-cell run
+SOLO_AMBIENT = 5000       # other whitelist barcodes, holding ambient reads
+SOLO_WL = 20000           # whitelist size
+SOLO_TYPES = 8            # cell types, each with its own gene profile
+SOLO_CDNA = 91            # read 2 of 10x Chromium v3
+SOLO_TAIL = 1000          # the transcript bases the cDNA reads come from (3')
+SOLO_TSO_SHARE = 0.10     # cDNA reads starting with a template-switch oligo
+SOLO_POLYA_SHARE = 0.05   # cDNA reads ending in a polyA tail
+SOLO_SIM_N = 10000        # EmptyDrops_CR Monte-Carlo simulations (Cell Ranger's)
+# STARsolo's documented flags for matching Cell Ranger 4.x / 5.x (STARsolo
+# README, "Matching CellRanger 4.x.x and 5.x.x results") with Gene and
+# GeneFull; EmptyDrops_CR is given its parameters so that its ambient window
+# (indMin, indMax) lies inside the generated barcodes and its umiMin below
+# the simple filter's cut at ~28 reads a cell (Cell Ranger's: 45,000, 90,000
+# and 500, for runs of thousands of reads a cell)
+SOLO_CR4_FLAGS = [
+    "--soloType", "CB_UMI_Simple", "--soloUMIlen", "12",
+    "--soloCBmatchWLtype", "1MM_multi_Nbase_pseudocounts",
+    "--soloUMIfiltering", "MultiGeneUMI_CR", "--soloUMIdedup", "1MM_CR",
+    "--clipAdapterType", "CellRanger4", "--outFilterScoreMin", "30",
+    "--soloFeatures", "Gene", "GeneFull",
+    "--soloCellFilter", "EmptyDrops_CR", str(SOLO_CELLS), "0.99", "10",
+    "1500", "6000", "5", "0.01", "20000", "0.01", str(SOLO_SIM_N),
+    "--outSAMattributes", "NH", "HI", "nM", "AS", "CR", "UR", "CB", "UB",
+    "GX", "GN", "--outSAMtype", "BAM", "SortedByCoordinate"]
+
+
+def solo_reads(np, genome_fa, gtf, out_cdna, out_bc, out_wl, n_reads, seed):
+    """a seeded 10x Chromium v3 run over the synthetic genes of gtf (source
+    'synth'), written as FASTQ (cDNA read 2 to out_cdna, 28-base barcode
+    read 1 to out_bc) with its whitelist (out_wl).  The cDNA reads
+    (SOLO_CDNA bases, 1 % substituted) are in the gene's sense, from the
+    last SOLO_TAIL transcript bases (3'-biased, spliced across exons); 5 %
+    are intronic and 5 % intergenic.  85 % of the reads come from
+    SOLO_CELLS cells of log-normal sizes, each of one of SOLO_TYPES types
+    with its own gene profile; 15 % are ambient, spread over SOLO_AMBIENT
+    other whitelist barcodes with the types' mixed profile.  20 % of a
+    barcode's reads repeat one of its molecules (same UMI, gene and
+    position; a quarter of them with one UMI base changed).  Of the cDNA
+    reads, SOLO_TSO_SHARE start with the last 20-30 bases of the 10x
+    template-switch oligo and SOLO_POLYA_SHARE end in 20-40 As, the
+    artefacts --clipAdapterType CellRanger4 clips.  3 % of the CBs carry
+    one substitution and 0.5 % an N.  Returns counts of the kinds"""
+    import bisect
+    from star_tpu_torch.align.clip import CR4_TSO
+    rng = np.random.default_rng(seed)
+    chrs = read_fasta(genome_fa)
+    comp = str.maketrans("ACGTN", "TGCAN")
+    rc = lambda x: x.translate(comp)[::-1]
+    genes = {}
+    with open(gtf) as f:
+        for line in f:
+            c = line.split("\t")
+            if len(c) > 8 and c[1] == "synth" and c[2] == "exon":
+                g = genes.setdefault(c[8].split('"')[1], (c[0], c[6], []))
+                g[2].append((int(c[3]) - 1, int(c[4])))
+    tx, introns, spans = [], [], {}
+    for c, strand, ex in genes.values():
+        t = "".join(chrs[c][a:b] for a, b in ex)
+        ins = [(ex[i][1], ex[i + 1][0]) for i in range(len(ex) - 1)
+               if ex[i + 1][0] - ex[i][1] >= SOLO_CDNA]
+        tx.append((t if strand == "+" else rc(t), strand))
+        introns.append((c, strand, ins))
+        spans.setdefault(c, []).append((ex[0][0], ex[-1][1]))
+    for c in spans:
+        spans[c].sort()
+    n_genes = len(tx)
+    pop = rng.lognormal(0.0, 1.0, n_genes)
+    prof = pop[None, :] * rng.lognormal(0.0, 1.5, (SOLO_TYPES, n_genes))
+    cum = np.cumsum(prof / prof.sum(1, keepdims=True), axis=1)
+    wl = set()
+    while len(wl) < SOLO_WL:
+        wl.add("".join("ACGT"[i] for i in rng.integers(0, 4, 16)))
+    wl = sorted(wl)
+    order = rng.permutation(SOLO_WL)
+    cells = [wl[i] for i in order[:SOLO_CELLS]]
+    ambient = [wl[i] for i in order[SOLO_CELLS:SOLO_CELLS + SOLO_AMBIENT]]
+    ctype = rng.integers(0, SOLO_TYPES, SOLO_CELLS)
+    csize = np.cumsum(rng.lognormal(0.0, 0.8, SOLO_CELLS))
+    csize /= csize[-1]
+    names = sorted(chrs)
+
+    def molecule(t):
+        """(kind, sequence) of a new molecule of a cell of type t"""
+        u = rng.random()
+        if u < 0.95:
+            g = min(int(np.searchsorted(cum[t], rng.random())), n_genes - 1)
+            if u < 0.90:
+                seq = tx[g][0][-SOLO_TAIL:]
+                p = int(rng.integers(0, len(seq) - SOLO_CDNA + 1))
+                return "exonic", seq[p:p + SOLO_CDNA]
+            c, strand, ins = introns[g]
+            if ins:
+                a, b = ins[int(rng.integers(0, len(ins)))]
+                p = int(rng.integers(a, b - SOLO_CDNA + 1))
+                seq = chrs[c][p:p + SOLO_CDNA]
+                return "intronic", seq if strand == "+" else rc(seq)
+        while True:                    # intergenic: outside every gene span
+            c = names[int(rng.integers(0, len(names)))]
+            p = int(rng.integers(0, len(chrs[c]) - SOLO_CDNA))
+            sp = spans.get(c, [])
+            k = bisect.bisect_right(sp, (p + SOLO_CDNA, 1 << 62))
+            if all(b <= p for _, b in sp[max(0, k - 30):k]):
+                seq = chrs[c][p:p + SOLO_CDNA]
+                return "intergenic", seq if rng.random() < 0.5 else rc(seq)
+
+    def mutate(x, rate):
+        x = np.frombuffer(x.encode(), np.uint8).copy()
+        hit = rng.random(len(x)) < rate
+        x[hit] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4,
+                                                                hit.sum())]
+        return x.tobytes().decode()
+
+    def one_off(x, base=None):
+        """x with one base changed (to base, or to another nucleotide)"""
+        j = int(rng.integers(0, len(x)))
+        b = base or "ACGT".replace(x[j], "")[int(rng.integers(0, 3))]
+        return x[:j] + b + x[j + 1:]
+    made = {"exonic": 0, "intronic": 0, "intergenic": 0, "repeat": 0,
+            "cell": 0, "ambient": 0, "cb_mm": 0, "cb_n": 0, "tso": 0,
+            "polya": 0}
+    mols = {}
+    with open(out_cdna, "w") as fc, open(out_bc, "w") as fb:
+        for i in range(n_reads):
+            if rng.random() < 0.85:
+                k = min(int(np.searchsorted(csize, rng.random())),
+                        SOLO_CELLS - 1)
+                cb, t = cells[k], int(ctype[k])
+                made["cell"] += 1
+            else:
+                cb = ambient[int(rng.integers(0, SOLO_AMBIENT))]
+                t = int(rng.integers(0, SOLO_TYPES))
+                made["ambient"] += 1
+            seen = mols.setdefault(cb, [])
+            if seen and rng.random() < 0.2:
+                kind, seq, umi = seen[int(rng.integers(0, len(seen)))]
+                made["repeat"] += 1
+                if rng.random() < 0.25:
+                    umi = one_off(umi)
+            else:
+                kind, seq = molecule(t)
+                umi = "".join("ACGT"[j] for j in rng.integers(0, 4, 12))
+                seen.append((kind, seq, umi))
+            made[kind] += 1
+            u = rng.random()
+            if u < 0.005:
+                cb = one_off(cb, "N")
+                made["cb_n"] += 1
+            elif u < 0.035:
+                cb = one_off(cb)
+                made["cb_mm"] += 1
+            if rng.random() < SOLO_TSO_SHARE:
+                k = int(rng.integers(20, 31))
+                seq = CR4_TSO[-k:] + seq[:SOLO_CDNA - k]
+                made["tso"] += 1
+            if rng.random() < SOLO_POLYA_SHARE:
+                k = int(rng.integers(20, 41))
+                seq = seq[:SOLO_CDNA - k] + "A" * k
+                made["polya"] += 1
+            fc.write(f"@solo{i}\n{mutate(seq, 0.01)}\n+\n{'F' * SOLO_CDNA}\n")
+            fb.write(f"@solo{i}\n{cb}{umi}\n+\n{'F' * 28}\n")
+    with open(out_wl, "w") as f:
+        f.write("".join(w + "\n" for w in wl))
+    return made
+
+
+def summary(path):
+    """{row: value} of a Solo.out Summary.csv"""
+    with open(path) as f:
+        return dict(l.rstrip("\n").split(",", 1) for l in f if "," in l)
+
+
+def mtx_entries(path):
+    """the non-zero entries a Matrix Market file declares"""
+    with open(path) as f:
+        rows = [l for l in f if not l.startswith("%")]
+    return int(rows[0].split()[2])
+
+
+def solo_goldens(fetch):
+    """phase 7 (a): every STARsolo golden on the card with the device
+    stitch engine forced on every level, then --runMode soloCellFiltering
+    through the port's main; each case's fetch_window launches"""
+    import shutil
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    ed = os.path.join(WORK, "solo_ed_idx")
+    shutil.rmtree(ed, ignore_errors=True)
+    solo_ed_index(ed)
+    gate = be.DEVICE_GROW_MIN_RECORDS
+    be.DEVICE_GROW_MIN_RECORDS = {s: 0 for _, s, _ in be.LEVELS}  # every level
+    try:
+        for case, gold, idx, flags, files in SOLO_GOLDENS:
+            out = os.path.join(WORK, "solo_" + case) + "/"
+            shutil.rmtree(out, ignore_errors=True)
+            P = Parameters(["--genomeDir", ed if idx == SOLO_ED_INDEX else idx,
+                            "--outFileNamePrefix", out, *flags])
+            be.LEVEL_STATS.clear()
+            n0 = fetch.LAUNCHES
+            t0 = time.time()
+            align_reads(P, device=DEVICE)
+            bad = solo_diff(out, os.path.join(TESTS, "golden", gold), files)
+            if bad:
+                raise AssertionError(f"solo golden {case}: {bad} differ")
+            n = fetch.LAUNCHES - n0
+            on_card = sum(v for (w, k), v in be.LEVEL_STATS.items()
+                          if k == "device")
+            if n == 0 or on_card == 0:
+                raise AssertionError(f"solo golden {case}: {n} fetch_window "
+                                     f"launches, {on_card} levels on the "
+                                     "device stitch engine")
+            log(f"solo: golden {case}: "
+                f"{', '.join(f if isinstance(f, str) else f[0] for f in files)} "
+                f"identical; {n} fetch_window launches, {on_card} levels on "
+                f"the device stitch engine, {time.time() - t0:.2f} s")
+    finally:
+        be.DEVICE_GROW_MIN_RECORDS = gate
+    out = os.path.join(WORK, "solo_cellfilt") + "/"
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    bad = solo_cellfilt(out)
+    if bad:
+        raise AssertionError(f"solo: soloCellFiltering: {bad} differ")
+    log("solo: --runMode soloCellFiltering (main): barcodes.tsv, "
+        "features.tsv, matrix.mtx identical")
+
+
+def solo_scale(torch, np, fetch, tile_fetch, data):
+    """phase 7 (b): a 10x Chromium v3 run (solo_reads) with Cell Ranger 4's
+    STARsolo flags on phase 5's saved pass-2 index, through the port's entry
+    point on the card; then its first N_SOLO_ORACLE reads mapped on the card
+    (stitch engine forced) and with the numpy engine must give the same
+    Solo.out tree and sorted BAM records, their prepare must clip alike with
+    the TSO clip of the batch and read by read, and the first N_SOLO_HOST
+    reads mapped on the card must equal the host oracle's.  Returns the
+    main run's launches"""
+    import shutil
+    from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    from star_tpu_torch.ops import pipeline
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    from star_tpu_torch.solo import emptydrops
+    idx = os.path.join(WORK, "annot") + "/_STARgenome"
+    t0 = time.time()
+    cdna, bc, wl = (os.path.join(WORK, f) for f in
+                    ("solo_cdna.fastq", "solo_bc.fastq", "solo_wl.txt"))
+    made = solo_reads(np, os.path.join(data, "genome.fa"),
+                      os.path.join(WORK, "annot_scale.gtf"), cdna, bc, wl,
+                      N_SOLO_READS, seed=19)
+    gi = GenomeIndex.load(idx)
+    log(f"solo: {N_SOLO_READS} reads of {SOLO_CELLS} cells and "
+        f"{SOLO_AMBIENT} ambient barcodes made ({made}), index loaded "
+        f"({time.time() - t0:.1f} s)")
+    outs = {k: os.path.join(WORK, "solo_" + k) + "/"
+            for k in ("scale", "card", "numpy", "first", "host")}
+    for d in outs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    argv = lambda k, *x: Parameters(["--genomeDir", idx, "--readFilesIn",
+                                     cdna, bc, "--soloCBwhitelist", wl,
+                                     "--outFileNamePrefix", outs[k],
+                                     "--tpuBatchSize",
+                                     str(N_SOLO_READS // 2),
+                                     *SOLO_CR4_FLAGS, *x])
+    ed = {"sims": 0, "s": 0.0, "called": 0}
+
+    def sim_rng(real, *a):
+        ed["sims"] += 1
+        return real(*a)
+
+    def ed_proc(real, *a, **k):
+        t = time.time()
+        out = real(*a, **k)
+        ed["s"] += time.time() - t
+        ed["called"] += int(out.sum() - a[1].sum())
+        return out
+
+    pipeline.TIMING = True
+    reset_counts(ds, be, pipeline)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fetch.LAUNCHES = 0                       # counts of this slice's main path
+    fetch.ROWS_LAUNCHES = 0
+    tile_fetch.LAUNCHES = 0
+    t0 = time.time()
+    try:
+        with Spy((emptydrops, "MT19937", sim_rng),
+                 (emptydrops, "empty_drops_cr_proc", ed_proc)):
+            stats = align_reads(argv("scale"), gi=gi, device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        pipeline.TIMING = False
+    wall = time.time() - t0
+    launches = {"fetch_window": fetch.LAUNCHES,
+                "fetch_rows": fetch.ROWS_LAUNCHES,
+                "tile_fetch": tile_fetch.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    t = pipeline.TIMERS
+    sl = stitch_launches(ds)
+    lv = levels(be)
+    log(f"solo: {stats.read_n} reads in {wall:.2f} s = "
+        f"{stats.read_n / wall:.1f} reads/s (index upload included); "
+        f"fetch_window launches {launches['fetch_window']} (grow "
+        f"{sl['fetch']}, finalize {sl['finalize']}, pack {sl['pack']}), "
+        f"fetch_rows {launches['fetch_rows']}, tile_fetch "
+        f"{launches['tile_fetch']}; peak device memory {peak} B")
+    log("solo: stages (TIMERS): " + ", ".join(
+        f"{k} {t[k]:.3f} s" for k in
+        ("prepare", "seed_loop", "replay", "stitch_batch",
+         *(f"stitch_level_W{w}" for w in lv), "finish", "solo_count",
+         "bam_encode", "solo_process", "bam_finish") if k in t)
+        + f"; of solo_process EmptyDrops_CR {ed['s']:.3f} s")
+    grow_report(ds, be, pipeline, "solo")
+    check_card_levels(ds, be, "solo")
+    sums = {ft: summary(outs["scale"] + f"Solo.out/{ft}/Summary.csv")
+            for ft in ("Gene", "GeneFull")}
+    nnz = {ft: mtx_entries(outs["scale"] + f"Solo.out/{ft}/raw/matrix.mtx")
+           for ft in ("Gene", "GeneFull")}
+    for ft, sm in sums.items():
+        log(f"solo: {ft}: {sm['Estimated Number of Cells']} cells called, "
+            f"median UMIs per cell {sm['Median UMI per Cell']}, reads with "
+            f"valid barcodes {sm['Reads With Valid Barcodes']}, "
+            f"sequencing saturation {sm['Sequencing Saturation']}, "
+            f"{nnz[ft]} raw matrix entries")
+    log(f"solo: EmptyDrops_CR: {ed['sims']} simulations, {ed['called']} "
+        f"cells called beyond the simple filter, {ed['s']:.2f} s")
+    if stats.read_n != N_SOLO_READS or lv.get(8, (0, 0))[0] != 2:
+        raise AssertionError(f"solo: {stats.read_n} reads, levels {lv}")
+    if sl["fetch"] <= 0 or not any(dev for _, dev in lv.values()):
+        raise AssertionError(f"solo: no level on the card ({lv}) or no "
+                             f"fetch_window in the grow ({sl})")
+    if min(nnz.values()) <= 0 or ed["sims"] < SOLO_SIM_N:
+        raise AssertionError(f"solo: raw matrix entries {nnz}, "
+                             f"{ed['sims']} EmptyDrops simulations")
+
+    # ---- the first reads on the card (engine forced) and with numpy
+    sub = ["--readMapNumber", str(N_SOLO_ORACLE)]
+    gate = be.DEVICE_GROW_MIN_RECORDS
+    be.DEVICE_GROW_MIN_RECORDS = {s: 0 for _, s, _ in be.LEVELS}
+    be.LEVEL_STATS.clear()
+    t0 = time.time()
+    try:
+        align_reads(argv("card", *sub), gi=gi, device=DEVICE)
+    finally:
+        be.DEVICE_GROW_MIN_RECORDS = gate
+    t_card = time.time() - t0
+    on_card = sum(v for (w, k), v in be.LEVEL_STATS.items() if k == "device")
+    os.environ["STAR_TPU_DEVICE_STITCH"] = "0"
+    t0 = time.time()
+    try:
+        align_reads(argv("numpy", *sub), gi=gi, device=DEVICE)
+    finally:
+        del os.environ["STAR_TPU_DEVICE_STITCH"]
+    t_np = time.time() - t0
+    bad = (tree_diff(outs["card"] + "Solo.out", outs["numpy"] + "Solo.out")
+           + tree_diff(outs["numpy"] + "Solo.out", outs["card"] + "Solo.out"))
+    if on_card == 0 or bad or not same_output(
+            outs["card"], outs["numpy"], "Aligned.sortedByCoord.out.bam"):
+        raise AssertionError(f"solo: the first {N_SOLO_ORACLE} reads differ "
+                             f"from the numpy engine: {bad or 'the BAM'} "
+                             f"({on_card} levels on the card)")
+    n_rec = len(bam_records(outs["card"] + "Aligned.sortedByCoord.out.bam")[1])
+    log(f"solo: the first {N_SOLO_ORACLE} reads' Solo.out tree and sorted "
+        f"BAM ({n_rec} records) identical to the numpy engine (card "
+        f"{t_card:.2f} s, {on_card} levels on the device stitch engine; "
+        f"numpy {t_np:.2f} s)")
+
+    # ---- the first reads' prepare: the clip of a batch and read by read
+    from star_tpu_torch.align.engine import ReadAligner
+    with open(cdna) as f:
+        seqs = [x.rstrip("\n") for x in
+                itertools.islice(f, 1, 4 * N_SOLO_ORACLE, 4)]
+
+    def prepare(batched):
+        """(clips and read of each read, seconds) of a new host aligner's
+        prepare_read, its 5p clip given the batch first where batched"""
+        a = ReadAligner(gi, argv("scale"))
+        t0 = time.time()
+        if batched:
+            a.clip_batch([[x] for x in seqs])
+        out = [(r.clips, rd[0].tobytes()) for r, rd in
+               (a.prepare_read(f"solo{i}", [x], ["F" * len(x)])
+                for i, x in enumerate(seqs))]
+        return out, time.time() - t0
+    per_read, t_read = prepare(False)
+    batch, t_batch = prepare(True)
+    n5 = sum(1 for c, _ in per_read if c[0][0])
+    n3 = sum(1 for c, _ in per_read if c[0][1])
+    if batch != per_read or not n5 or not n3:
+        raise AssertionError(f"solo: the first {N_SOLO_ORACLE} reads' "
+                             f"prepare: batch clip equal {batch == per_read}"
+                             f", {n5} TSO and {n3} polyA clips")
+    log(f"solo: the first {N_SOLO_ORACLE} reads' prepare (CellRanger4 clip: "
+        f"{n5} TSO, {n3} polyA clipped): the TSO clip of the batch "
+        f"{t_batch:.3f} s, read by read {t_read:.3f} s; clips and reads "
+        "identical")
+
+    # ---- the first reads on the card and with the host oracle
+    sub = ["--readMapNumber", str(N_SOLO_HOST)]
+    t0 = time.time()
+    align_reads(argv("first", *sub), gi=gi, device=DEVICE)
+    t_card = time.time() - t0
+    t0 = time.time()
+    align_reads(argv("host", *sub, "--tpuUseDevice", "0"), gi=gi)
+    t_host = time.time() - t0
+    bad = (tree_diff(outs["first"] + "Solo.out", outs["host"] + "Solo.out")
+           + tree_diff(outs["host"] + "Solo.out", outs["first"] + "Solo.out"))
+    if bad or not same_output(outs["first"], outs["host"],
+                              "Aligned.sortedByCoord.out.bam"):
+        raise AssertionError(f"solo: the first {N_SOLO_HOST} reads differ "
+                             f"from the host oracle: {bad or 'the BAM'}")
+    log(f"solo: the first {N_SOLO_HOST} reads' Solo.out tree and sorted BAM "
+        f"identical to the host oracle (--tpuUseDevice 0, the per-read "
+        f"clip; card {t_card:.2f} s, host {t_host:.2f} s)")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1642,18 +2265,33 @@ def main():
                         or "spill" in line:
                     log(f"build: {k}: " + line.strip())
 
+        t_phase = [t_start]
+
+        def phase_done(name):
+            t_phase.append(time.time())
+            log(f"phase {name}: {t_phase[-1] - t_phase[-2]:.1f} s")
+        phase_done("build")
         win_err, widths = phase_window_kernel(torch, np, fetch)
         kern = [phase_kernel(torch, np, fetch),
                 phase_tile_kernel(torch, np, tile_fetch)]
+        phase_done("kernel")
         phase_golden(fetch)
+        phase_done("golden")
         launches, replay = phase_full(torch, np, fetch, data_proc, data)
+        phase_done("full")
         annot_goldens(fetch)
         annot = annot_scale(torch, np, fetch, tile_fetch,
                             os.path.join(WORK, "idx"), data)
+        phase_done("annot")
         fusion_goldens(fetch)
         fusion = fusion_scale(torch, np, fetch, tile_fetch,
                               os.path.join(WORK, "idx"), data)
-        launches = {k: v + annot[k] + fusion[k] for k, v in launches.items()}
+        phase_done("fusion")
+        solo_goldens(fetch)
+        solo = solo_scale(torch, np, fetch, tile_fetch, data)
+        phase_done("solo")
+        launches = {k: v + annot[k] + fusion[k] + solo[k]
+                    for k, v in launches.items()}
         for k in kern:
             k["launches"] = launches[k["name"]]
         ph = replay["fetches"]

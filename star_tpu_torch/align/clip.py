@@ -112,6 +112,44 @@ def cr4_clip5p_info(seq_num, lread: int, ad_num: List[int]) -> int:
     return 0 if l0 else l
 
 
+def cr4_clip5p_info_batch(seqs_num, n5: int, ad_num: List[int]):
+    """cr4_clip5p_info of many reads at once, each after a 5p clip of n5
+    bases (ClipMate.clip's order), as numpy over the reads: an int array.
+
+    With the +1/-2 scores and a linear gap of 2, opal's E and F of a cell
+    are always the H above / to the left minus 2 (H >= E, F), so one
+    column of opal_ov_score_end is H[r] = max(Hl[r] - 2, H[r-1] - 2,
+    Hl[r-1] + s(q[r], t)), zero above and left of the matrix; the vertical
+    chain is a running maximum of g[k] + 2k, less 2r.  Ties and end columns
+    follow opal_ov_score_end exactly."""
+    import numpy as np
+    B = len(seqs_num)
+    tgt = np.full((B, CR4_READ_LEN), 4, np.int64)
+    for i, m in enumerate(seqs_num):
+        off, lread = (0, 0) if 0 < n5 >= len(m) else (n5, len(m) - n5)
+        k = min(lread, CR4_READ_LEN)
+        tgt[i, :k] = m[off:off + k]
+    q = np.asarray(ad_num, np.int64)
+    score = np.asarray(_CR4_SCORE, np.int64)[q]        # [nq, 5]
+    two_r = 2 * np.arange(len(q), dtype=np.int64)
+    h = np.zeros((B, len(q)), np.int64)
+    diag = np.zeros_like(h)
+    max_last_row = np.full(B, NEG_INF, np.int64)
+    best_col = np.full(B, -1, np.int64)
+    for c in range(CR4_READ_LEN):
+        diag[:, 1:] = h[:, :-1]
+        g = np.maximum(h - 2, diag + score[:, tgt[:, c]].T)
+        h = np.maximum(np.maximum.accumulate(g + two_r, axis=1), -2) - two_r
+        up = h[:, -1] > max_last_row
+        best_col[up] = c
+        max_last_row[up] = h[up, -1]
+    col_max = h.max(axis=1)
+    s = np.maximum(col_max, max_last_row)
+    l = np.where(col_max > max_last_row, CR4_READ_LEN - 1, best_col) + 1
+    l0 = (s < 20) | ((s == 20) & (l > 26)) | ((s == 21) & (l > 30))
+    return np.where(l0, 0, l)
+
+
 def poly_tail_3p(seq_num, seq_len: int) -> int:
     """reference ClipCR4::polyTail3p (polyA clip, hardcoded CR4 thresholds)"""
     if seq_len < 20:
@@ -147,6 +185,19 @@ class ClipMate:
         self.n_after_ad = n_after_ad
         self.ad_mmp = ad_mmp
         self.clipped_n = 0
+        self.batch_info = {}     # (mate bytes, length) -> clip_batch's info
+
+    def clip_batch(self, seqs: List[str]) -> None:
+        """the 5p CellRanger4 TSO clip of a batch of whole mates at once
+        (cr4_clip5p_info_batch); clip then takes a mate's info from here
+        instead of running its DP.  Other clip types keep nothing."""
+        from ..constants import encode_seq
+        self.batch_info = {}
+        if self.type == 10 and self.ad_seq and seqs:
+            seqs_num = [encode_seq(s) for s in seqs]
+            info = cr4_clip5p_info_batch(seqs_num, self.n, self.ad_num)
+            self.batch_info = {(m.tobytes(), len(m)): int(i)
+                               for m, i in zip(seqs_num, info)}
 
     def clip(self, seq_num, lread: int) -> Tuple[int, int]:
         """returns (new_lread, offset_into_seq); mirrors ClipMate::clip.
@@ -172,7 +223,9 @@ class ClipMate:
                     seq_num[off:off + lread], lread, self.ad_num,
                     len(self.ad_num), self.ad_mmp)
             elif self.type == 10:  # 5p CR4 (TSO)
-                info = cr4_clip5p_info(seq_num[off:], lread, self.ad_num)
+                info = self.batch_info.get((seq_num.tobytes(), lread_old))
+                if info is None:
+                    info = cr4_clip5p_info(seq_num[off:], lread, self.ad_num)
                 clipped_ad = min(info, lread)
                 off += clipped_ad
             elif self.type == 11:  # 3p CR4 (polyA)

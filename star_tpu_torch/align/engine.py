@@ -88,6 +88,21 @@ class ReadAligner:
         return False
 
     # ------------------------------------------------------------- one read
+    def _clip_mates(self, n_mates: int):
+        """the per-mate [5p, 3p] ClipMates, made on first use (None when no
+        clipping is configured)"""
+        if not hasattr(self, "clip_mates"):
+            from .clip import make_clip_mates
+            self.clip_mates = make_clip_mates(self.P, n_mates)
+        return self.clip_mates
+
+    def clip_batch(self, batch_seqs) -> None:
+        """give each mate's 5p ClipMate a batch's reads at once
+        (ClipMate.clip_batch), before prepare_read takes them one by one"""
+        cm = self._clip_mates(len(batch_seqs[0])) if batch_seqs else None
+        for im, (c5, _) in enumerate(cm or ()):
+            c5.clip_batch([s[im] for s in batch_seqs])
+
     def prepare_read(self, name: str, seqs: List[str], quals: List[str]):
         """encode/combine mates -> (res, (read1, complement, revcomp))"""
         from ..constants import encode_seq
@@ -96,10 +111,7 @@ class ReadAligner:
         mates = [encode_seq(s) for s in seqs]
         res.read_length_original = [len(m) for m in mates] + [0] * (2 - n_mates)
         res.clips = [[0, 0], [0, 0]]
-        if not hasattr(self, "clip_mates"):
-            from .clip import make_clip_mates
-            self.clip_mates = make_clip_mates(self.P, n_mates)
-        if self.clip_mates is not None:
+        if self._clip_mates(n_mates) is not None:
             # clip before alignment (reference readLoad.cpp:60-61); output
             # keeps the original sequence with soft clips added in CIGAR
             for im in range(n_mates):

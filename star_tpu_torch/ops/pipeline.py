@@ -164,6 +164,7 @@ class DeviceAligner:
         P = self.P
         with _tick("prepare"):
             prepped = []
+            self.host.clip_batch([b[1] for b in batch])
             for name, seqs, quals, ftype in batch:
                 res, reads = self.host.prepare_read(name, seqs, quals)
                 res.read_file_type = ftype

@@ -1,5 +1,5 @@
-"""Run drivers: genomeGenerate, alignReads, liftOver and
-inputAlignmentsFromBAM.
+"""Run drivers: genomeGenerate, alignReads, liftOver,
+inputAlignmentsFromBAM and soloCellFiltering.
 
 The port's run surface (reference: source/STAR.cpp dispatch): index
 generation with or without annotations, mapping-time sjdb insertion, two-pass
@@ -9,8 +9,9 @@ coordinate-sorted) / SJ / log outputs, unmapped-read FASTX, GeneCounts and
 TranscriptomeSAM quantification, bedGraph signal, BAM duplicate removal and
 GTF liftOver, chimeric detection (Chimeric.out.junction, SeparateSAMold,
 WithinBAM), the PE mate-overlap merge, long reads, SNP tags and WASP, and the
-STARconsensus genome transform, single- and paired-end.  The device path runs
-the seed search and the stitch engine on the GPU (ops/pipeline.py
+STARconsensus genome transform, single- and paired-end, and STARsolo
+(CB_UMI_Simple, CB_UMI_Complex, SmartSeq, CB_samTagOut; solo/).  The device
+path runs the seed search and the stitch engine on the GPU (ops/pipeline.py
 DeviceAligner); the host runs the rest.  Options whose stages are not ported
 yet stop the run with a message that names them.
 
@@ -18,8 +19,10 @@ With pipeline.TIMING on, the host stages of this module add to
 pipeline.TIMERS: sjdb_insert (junction collection, insertion and
 --sjdbInsertSave), pristine (the re-sort of an index without its junction
 region before re-insertion), bam_encode, quant (GeneCounts and
-TranscriptomeSAM per read), bam_finish (the coordinate sort and the BAM
-writes) and signal.
+TranscriptomeSAM per read), solo_count (the barcode match and the per-read
+STARsolo feature record, or the CB_samTagOut barcode match), solo_process
+(STARsolo counting, cell filtering and the Solo.out files), bam_finish (the
+coordinate sort and the BAM writes) and signal.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from typing import Optional
 from .params import Parameters
 from .genome.index import GenomeIndex
 from .align.engine import ReadAligner
-from .io.fastq import read_pairs_indexed
+from .io.fastq import read_pairs, read_pairs_indexed
 from .io.sam import sam_header, write_read_sam
 from .io.sj import SJCollector
 from .ops.pipeline import _tick
@@ -41,7 +44,6 @@ from .stats import RunStats
 def _not_ported(P: Parameters):
     """options outside this port's slices -> the option names"""
     checks = [
-        ("--soloType", P.soloTypeYes),
         ("--tpuShardedIndex", bool(getattr(P, "tpuShardedIndex", 0))),
     ]
     return [name for name, on in checks if on]
@@ -372,6 +374,28 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
                      "DP, align/stitch.py stitch_window_seeds), not on the "
                      "device")
 
+    solo = None
+    cb_tag_bc = None
+    if P.soloTypeYes and P.soloType[0] == "CB_samTagOut":
+        # barcode extraction + corrected-CB SAM tag, no counting
+        # (reference Solo.cpp:13, SoloReadBarcode_getCBandUMI.cpp:311-328)
+        from .solo.solo import SoloBarcodes
+        if P.soloCBmatchWLtype not in ("Exact", "1MM"):
+            raise SystemExit(
+                "EXITING because of fatal PARAMETERS error: --soloCBmatchWLtype "
+                f"{P.soloCBmatchWLtype} does not work with --soloType "
+                "CB_samTagOut\nSOLUTION: use allowed option: use "
+                "--soloCBmatchWLtype Exact (exact matches only) OR 1MM (one "
+                "match with 1 mismatched base)")
+        cb_tag_bc = SoloBarcodes(P)
+    if P.soloTypeYes and P.soloType[0] in ("CB_UMI_Simple", "CB_UMI_Complex",
+                                           "SmartSeq"):
+        from .quant.transcriptome import Transcriptome
+        from .solo.solo import Solo
+        trm_solo = Transcriptome.load(getattr(P, "trInfoDir", P.genomeDir))
+        solo = Solo(gi, P, trm_solo)
+        P._solo_trm = trm_solo
+
     chim_stream = None
     chim_lines = []
     chim_sam_lines = []
@@ -403,7 +427,27 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
                                         attrs_order=["NH", "HI"]):
                     w.write(r)
 
+    def solo_read(res):
+        if solo is not None and getattr(res, "solo_bc", None) is not None:
+            solo.add_read(res, res.solo_bc[0], res.solo_bc[1],
+                          getattr(res, "i_read_all", 0))
+        elif solo is not None and P.soloType[0] == "SmartSeq":
+            solo.add_read(res, "", "", getattr(res, "i_read_all", 0))
+        elif cb_tag_bc is not None:
+            b_seq, b_qual = res.solo_bc
+            cb_match, matches, _, parts = cb_tag_bc.get_cb_umi(
+                b_seq, b_qual, skip_umi=True)
+            res.solo_bar = parts
+            if cb_match in (0, 1):
+                res.cb_corrected = (cb_tag_bc.wl_str[matches[0][0]]
+                                    if cb_tag_bc.wl_yes else parts[0])
+            else:
+                res.cb_corrected = "-"
+
     def emit(res):
+        if solo is not None or cb_tag_bc is not None:
+            with _tick("solo_count"):
+                solo_read(res)
         # chimeric detection runs for every read with windows, including
         # reads failing the linear filters (reference: oneRead order)
         chim_recorded = False
@@ -511,6 +555,7 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
                 held.append((res.name, res.seqs, res.quals,
                              res.read_file_type,
                              getattr(res, "i_read_all", 0),
+                             getattr(res, "solo_bc", None),
                              getattr(res, "read_file_index", 0)))
                 continue
         emit(res)
@@ -525,10 +570,11 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
         P2.outFilterBySJoutStage = 2
         aligner = ReadAligner(gi, P2)
         aligner.sj_novel = (starts, ends)
-        for name, seqs, quals, ftype, iread, ifile in held:
+        for name, seqs, quals, ftype, iread, solo_bc, ifile in held:
             res = aligner.align_read(name, seqs, quals)
             res.read_file_type = ftype
             res.i_read_all = iread
+            res.solo_bc = solo_bc
             res.read_file_index = ifile
             stats.add_read(res)
             emit(res)
@@ -545,9 +591,26 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
     sam_lines.close()
     if tr_sam is not None:
         tr_sam[3].close()
+    # Solo counting runs before the coordinate sort so CB/UB tags can be
+    # injected into sorted records (reference STAR.cpp:255 vs :272)
+    solo_tags = None
+    if solo is not None:
+        with _tick("solo_process"):
+            import numpy as np
+            sj_rows = sj.collapse_and_filter()
+            sj_all = (np.array([r[0] for r in sj_rows], dtype=np.int64),
+                      np.array([r[1] for r in sj_rows], dtype=np.int64))
+            run_stats = {"readN": stats.read_n,
+                         "mappedU": stats.mapped_reads_u,
+                         "mappedUM": (stats.mapped_reads_u
+                                      + stats.mapped_reads_m)}
+            solo.process(prefix + "Solo.out/", run_stats, sj_all)
+            if P.outSAMattrCBUB:
+                proc = solo.procs[solo.sam_attr_feature]
+                solo_tags = (proc.read_info, solo.bc.wl_str, solo.bc.umi_l)
     if bam is not None:
         with _tick("bam_finish"):
-            bam.finish()
+            bam.finish(solo_tags)
         if P.outWigType[0] != "None" and P.outBAMcoord:
             from .io.signal import signal_from_bam
             with _tick("signal"):
@@ -662,6 +725,47 @@ def _has_novel_junction(res) -> bool:
 
 def _align_all(P: Parameters, gi: GenomeIndex, stats: RunStats,
                use_device: bool, device=None):
+    if P.soloTypeYes and P.soloType[0] != "SmartSeq":
+        # the barcode read is the last file; only the cDNA read is aligned
+        # (SmartSeq has no barcode read: its wells come from the file index,
+        # so it flows through the plain reader below, which tracks it)
+        reader = ((name, seqs[:1], quals[:1], ftype, (seqs[1], quals[1]))
+                  for name, seqs, quals, ftype
+                  in read_pairs(P.readFilesIn[:2], P.readFilesCommand))
+        if use_device:
+            # stream: the barcodes of the reads in flight wait on a deque
+            # (align_stream yields in input order), so memory stays O(batch)
+            from collections import deque
+            from .ops.pipeline import DeviceAligner
+            aligner = DeviceAligner(gi, P, device=device)
+            pending = deque()
+
+            def plain():
+                for i, (name, seqs, quals, ftype, bc) in enumerate(reader):
+                    pending.append((i, name, bc))
+                    yield name, seqs, quals, ftype
+            for res in aligner.align_stream(plain(), stats):
+                ii, name, bc = pending.popleft()
+                if res.name != name:
+                    raise RuntimeError(f"barcode of read {name} paired with "
+                                       f"read {res.name}")
+                res.solo_bc = bc
+                res.i_read_all = ii
+                yield res
+        else:
+            aligner = ReadAligner(gi, P)
+            n = 0
+            for name, seqs, quals, ftype, bc in reader:
+                if P.readMapNumber >= 0 and n >= P.readMapNumber:
+                    break
+                res = aligner.align_read(name, seqs, quals)
+                res.read_file_type = ftype
+                res.solo_bc = bc
+                res.i_read_all = n
+                stats.add_read(res)
+                n += 1
+                yield res
+        return
     reader_idx = read_pairs_indexed(P.readFilesIn[:max(P.readNmates, 1)],
                                     P.readFilesCommand,
                                     sam_mates=P.samInputNmates)
@@ -677,6 +781,7 @@ def _align_all(P: Parameters, gi: GenomeIndex, stats: RunStats,
         # align_stream yields in input order (reference-order replay)
         for k, res in enumerate(aligner.align_stream(plain(), stats)):
             res.read_file_index, res.name_extra = file_idx[k]
+            res.i_read_all = k
             yield res
     else:
         aligner = ReadAligner(gi, P)
@@ -738,7 +843,8 @@ def main(argv=None):
         from .io.liftover import lift_over_main
         lift_over_main(P)
     elif P.runMode[0] == "soloCellFiltering":
-        _refuse(["--runMode soloCellFiltering"])
+        from .solo.solo import solo_cell_filtering
+        solo_cell_filtering(P)
     elif "inputAlignmentsFromBAM" in P.runMode:
         if P.outWigType[0] != "None":
             from .io.signal import signal_from_bam

@@ -5,6 +5,7 @@ against the host oracle, the device grow on the card against the numpy
 grow, the device finalize, select and pack on the card against the same
 engine on CPU tensors, and two-pass mapping, GeneCounts and BAM output on the
 card against the goldens, chimeric detection and the mate-overlap merge on
+the card against the goldens, and STARsolo counting with CB/UB BAM tags on
 the card against the goldens.  They skip where no card is present.  This file
 imports neither jax nor star_tpu, so on a machine with a card and no jax it
 runs as
@@ -17,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ANNOT_GOLDENS, FUSION_GOLDENS, same_output
+from chip_smoke import (ANNOT_GOLDENS, FUSION_GOLDENS, SOLO_GOLDENS,
+                        TESTS, same_output, solo_diff)
 from star_tpu_torch.ops import fetch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -360,3 +362,35 @@ def test_host_finished_features_on_card_match_goldens(cuda, tmp_path,
     assert on_card > 0 if gold == "peov" else on_card == 0
     for f in files:
         assert same_output(prefix, os.path.join(GOLD, gold) + "/", f), f
+
+
+SOLO_CASES = [c for c in SOLO_GOLDENS if c[0] in ("solo", "solo_tags")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,gold,index,flags,files", SOLO_CASES,
+                         ids=[c[0] for c in SOLO_CASES])
+def test_solo_on_card_matches_goldens(cuda, tmp_path, monkeypatch, case, gold,
+                                      index, flags, files):
+    """STARsolo CB_UMI_Simple after the device stitch engine (forced on
+    every level): Solo.out and the CB/UB-tagged sorted BAM identical to the
+    goldens, with fetch_window launched in the grow"""
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    monkeypatch.delenv("STAR_TPU_DEVICE_STITCH", raising=False)
+    monkeypatch.setattr(be, "DEVICE_GROW_MIN_RECORDS",
+                        {s_max: 0 for _, s_max, _ in be.LEVELS})
+    be.LEVEL_STATS.clear()
+    ds.GROW_STATS.clear()
+    prefix = str(tmp_path) + "/"
+    P = Parameters(["--genomeDir", index, "--outFileNamePrefix", prefix,
+                    *flags])
+    n0 = fetch.LAUNCHES
+    align_reads(P, device=cuda)
+    assert fetch.LAUNCHES > n0
+    assert sum(v for (w, k), v in ds.GROW_STATS.items()
+               if k == "fetch_launches") > 0
+    assert sum(v for (w, k), v in be.LEVEL_STATS.items() if k == "device") > 0
+    assert solo_diff(prefix, os.path.join(TESTS, "golden", gold), files) == []
