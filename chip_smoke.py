@@ -35,8 +35,9 @@ in order; any failure ends the run with a non-zero exit and no result line:
              records, LaneStates equal), which places the device-grow gate
              batch_engine.DEVICE_GROW_MIN_RECORDS; the seed loop and the
              stitch replayed with every fetch_window call recorded (the
-             wrapper's host time per call) and launched again per phase: the
-             kernel's own device time (each call between its own CUDA events,
+             wrapper's host time per call) and launched again per phase,
+             each call held against the plain version: the kernel's own
+             device time (each call between its own CUDA events,
              queued behind a sleep kernel), the old fetch_rows + cut
              composition, the library call table.unfold(0, W, 1)[start], the
              plain version and the bytes bound; the W512 finalize replayed, numpy finalize_lanes against
@@ -64,7 +65,8 @@ in order; any failure ends the run with a non-zero exit and no result line:
              pristine, bam_encode, quant, bam_finish); SJ.out.tab, both BAMs,
              ReadsPerGene.out.tab and the transcriptome BAM identical to a run
              of the same reads and flags with the numpy engine on the index
-             pass 2 mapped against;
+             pass 2 mapped against (a process of its own, started here and
+             held after phase 8, so that it runs beside phases 6-8);
   6. fusion  the host-finished features on cuda: the goldens se_chim,
              chim_mult, chim_samold, chim_wbam_old, chim_wbam_mult, var and
              wasp (the seed loop on the card, the stitch on the host), peov
@@ -73,7 +75,7 @@ in order; any failure ends the run with a non-zero exit and no result line:
              built by the port's genomeGenerate, then tf_hap / tf_dip with
              the device stitch engine forced (each identical, BAMs record for
              record; fetch_window launches per golden); then fusion detection
-             at the chr20 scale: 8,192 seeded 2 x 100 pairs (fusion_pairs:
+             at the chr20 scale: 4,096 seeded 2 x 100 pairs (fusion_pairs:
              5 % across 16 planted chr1-chr2 fusions, 30 % with overlapping
              mates) mapped on cuda with STAR-Fusion's STAR flags (FUSION_FLAGS,
              without its --twopassMode Basic: phase 5 runs two passes):
@@ -112,11 +114,30 @@ in order; any failure ends the run with a non-zero exit and no result line:
              mapped on the card (stitch engine forced) and with the numpy
              engine must give the same Solo.out tree and sorted BAM, and the
              first 1,024 mapped on the card and with the host oracle
-             (--tpuUseDevice 0) too.
+             (--tpuUseDevice 0) too;
+  8. sharded the sharded suffix-array index (--tpuShardedIndex 1,
+             parallel/mesh.py) on cuda: (a) se_gtf's SAM and SJ.out.tab and
+             se_quant's ReadsPerGene.out.tab with GeneCounts merged over the
+             dp rows, through the command line (one shard on one card) and
+             at 4 shards (2 x 2) on the card, never building the
+             single-device index; (b) phase 4's 16,384 reads on phase 4's
+             index with the suffix array split over 4 shards (1 x 4) on the
+             card: SAM and SJ.out.tab byte-identical to phase 4's, reads/s
+             beside phase 4's, TIMERS, fetch_window launches (seed loop,
+             grow, finalize, pack), the sharded index's bytes and peak
+             device memory; the seed loop's fetch_window calls replayed
+             from phase 4's dumped inputs, each held against the plain
+             window and timed as phase 4's are; (c) the big layout (int64
+             SA rows, the forward genome alone) forced on the same index
+             and shards: 1,024 probes equal to the host mmp_search; (d) a
+             one-rank NCCL group: psum_merge and merge_keyed_counts on CUDA
+             tensors, keys and counts past 2^32, equal to numpy, the group
+             destroyed after.
 
 Then one JSON line of kernel measurements (launches: those of phase 4's
-batch, phase 5's two-pass run, phase 6's pair set and phase 7's single-cell
-run), the card's name and power limit (nvidia-smi), and as the last line
+batch, phase 5's two-pass run, phase 6's pair set, phase 7's single-cell
+run and phase 8's sharded batch), the card's name and power limit
+(nvidia-smi), and as the last line
 {"ok": true, "device": {...}}.
 Generated data, the index and outputs stay under star_tpu_torch/_build/.
 """
@@ -143,9 +164,9 @@ SWEEP = {8: (4096, 8192, 16384),   # reads replayed per level
 FETCH_ROWS = 262144                   # rows of one MMP neighbour fetch
 FETCH_TABLE = 128 << 20
 # the main path's fetch_window widths at 100 bp SE (SA entry, SAi pair,
-# lane rows, Lwin, QL, 2 * Lwin, RSPAN, GSPAN), the 2x150 PE genome span
-# (two rows) and the widest window
-WINDOW_WIDTHS = (4, 8, 96, 104, 128, 208, 318, 400, 724, 1172, 3072)
+# the sharded index's int64 SAi pair, lane rows, Lwin, QL, 2 * Lwin, RSPAN,
+# GSPAN), the 2x150 PE genome span (two rows) and the widest window
+WINDOW_WIDTHS = (4, 8, 16, 96, 104, 128, 208, 318, 400, 724, 1172, 3072)
 DEVICE = "cuda"
 
 HBM_BW = 3.35e12                      # H100 SXM (NVIDIA data sheet), B/s
@@ -788,8 +809,10 @@ def record_fetches(torch, fetch, run):
 
 
 def time_calls(torch, fetch, calls):
-    """the recorded calls of one phase launched again back to back: the
-    window kernel's own device time (twice, before and after the rest), the
+    """the recorded calls of one phase launched again: each call's kernel
+    output held against the plain version (its live rows, byte for byte),
+    then back to back the window kernel's own device time (twice, before
+    and after the rest), the
     old composition (fetch_rows + cut), the library call
     table.unfold(0, W, 1)[start], the plain version, and the bytes bound.
     A table the run has freed since is stood in for by an uninitialised one
@@ -810,12 +833,22 @@ def time_calls(torch, fetch, calls):
         return t
 
     items = [(c, c[3][c[3] >= 0].clamp(max=c[2] - c[4])) for c in calls]
+    err = 0
+    for c in calls:
+        t, live = table(c), c[3] >= 0
+        if live.any():
+            got = fetch._fetch_window_cuda(t, c[3], c[4])[live].int()
+            want = fetch._fetch_window_torch(t, c[3], c[4])[live].int()
+            err = max(err, int((got - want).abs().max()))
+    if err:
+        raise AssertionError(f"fetch_window kernel differs from plain on a "
+                             f"recorded call: {err}")
 
     def timed(f):
         return queued_ms(torch, items, lambda it: table(it[0]),
                          lambda t, it: f(t, *it))
     kern = timed(lambda t, c, lc: fetch._fetch_window_cuda(t, c[3], c[4]))
-    r = {"ms": kern}
+    r = {"ms": kern, "max_abs_err": err}
     r["old_ms"] = timed(
         lambda t, c, lc: old_fetch_cut(torch, fetch, t, c[3], c[4]))
     r["library_ms"] = timed(lambda t, c, lc: t.unfold(0, c[4], 1)[lc])
@@ -845,13 +878,14 @@ def replay_fetches(torch, np, gi, P, d, fetch, want):
     phase, which the replay must repeat.  Returns {phase: timings}."""
     from star_tpu_torch.ops import batch_engine as be
     from star_tpu_torch.ops import pipeline
+    from star_tpu_torch.ops.sa_search import make_mmp_fn
     di = gi._device_cache[next(k for k in gi._device_cache
                                if k[0] != "stitch")]
     D = int(getattr(gi, "sa_sparse_d", 1)) or 1
     put = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=DEVICE)
 
     def run():
-        pipeline.make_fused_seed_fn(di, D)(
+        pipeline.make_fused_seed_fn(make_mmp_fn(di), di.ql, D)(
             torch.as_tensor(d["read_mat"], device=DEVICE),
             *[put(a) for a in d["chains"]], int(P.seedMapMin))
         be.stitch_batch(gi, P, d["seeds"], d["fwd"], d["rc"], d["lread"],
@@ -877,9 +911,33 @@ def replay_fetches(torch, np, gi, P, d, fetch, want):
     return out
 
 
+def probe_set(np, reads, ql):
+    """N_PROBES seeded probes cut from the batch's reads, half of them
+    reverse-complemented: ([N_PROBES, ql] int8, -1 padded; lengths)"""
+    from star_tpu_torch.constants import encode_seq
+    from star_tpu_torch.io.fastq import read_pairs
+    rng = np.random.default_rng(5)
+    recs = [seqs[0] for _, seqs, _, _ in
+            itertools.islice(read_pairs([reads]), N_READS)]
+    qs = np.full((N_PROBES, ql), -1, np.int8)
+    qlen = np.zeros(N_PROBES, np.int64)
+    b = 0
+    while b < N_PROBES:
+        s = encode_seq(recs[int(rng.integers(0, len(recs)))])
+        if rng.random() < 0.5:
+            s = (3 - s[::-1]).astype(np.int8)
+        st = int(rng.integers(0, len(s) - 6))
+        q = s[st:st + int(rng.integers(6, len(s) - st + 1))]
+        if ((q < 0) | (q > 3)).any():
+            continue
+        qs[b, :len(q)] = q
+        qlen[b] = len(q)
+        b += 1
+    return qs, qlen
+
+
 def phase_full(torch, np, fetch, data_proc, data):
     from star_tpu_torch.align.seed import mmp_search
-    from star_tpu_torch.constants import encode_seq
     from star_tpu_torch.genome.index import GenomeIndex
     from star_tpu_torch.io.fastq import read_pairs
     from star_tpu_torch.ops import batch_engine as be
@@ -968,33 +1026,19 @@ def phase_full(torch, np, fetch, data_proc, data):
 
     d = load_dump(gi, P, os.path.join(dump, sorted(os.listdir(dump))[0]))
     reach = level_reach(np, gi, P, d)
-    replay = {"sweep": grow_sweep(np, gi, P, d, reach),
+    replay = {"reads_s": N_READS / wall, "timers": dict(pipeline.TIMERS),
+              "sweep": grow_sweep(np, gi, P, d, reach),
               "fetches": replay_fetches(torch, np, gi, P, d, fetch,
                                         per_phase),
-              "finalize": finalize_replay(np, gi, P, d, reach, pipeline)}
+              "finalize": finalize_replay(np, gi, P, d, reach, pipeline),
+              "seed_in": (d["read_mat"], d["chains"])}
     del d
 
     # ---- 1,024 probes of the batch's reads vs the host oracle
     di = gi._device_cache[next(k for k in gi._device_cache
                                if k[0] != "stitch")]
     mmp = make_mmp_fn(di)
-    rng = np.random.default_rng(5)
-    recs = [(name, seqs[0]) for name, seqs, _, _ in
-            itertools.islice(read_pairs([reads]), N_READS)]
-    qs = np.full((N_PROBES, di.ql), -1, np.int8)
-    qlen = np.zeros(N_PROBES, np.int64)
-    b = 0
-    while b < N_PROBES:
-        s = encode_seq(recs[int(rng.integers(0, len(recs)))][1])
-        if rng.random() < 0.5:
-            s = (3 - s[::-1]).astype(np.int8)
-        st = int(rng.integers(0, len(s) - 6))
-        q = s[st:st + int(rng.integers(6, len(s) - st + 1))]
-        if ((q < 0) | (q > 3)).any():
-            continue
-        qs[b, :len(q)] = q
-        qlen[b] = len(q)
-        b += 1
+    qs, qlen = probe_set(np, reads, di.ql)
     got = np.stack([t.cpu().numpy() for t in mmp(
         torch.from_numpy(qs).to(DEVICE), torch.from_numpy(qlen).to(DEVICE))],
         axis=1)
@@ -1004,6 +1048,8 @@ def phase_full(torch, np, fetch, data_proc, data):
         raise AssertionError(f"full: {bad} of {N_PROBES} probes differ from "
                              "the host oracle")
     log(f"full: {N_PROBES} probes equal the host mmp_search")
+    recs = [(name, seqs[0]) for name, seqs, _, _ in
+            itertools.islice(read_pairs([reads]), N_READS)]
 
     # ---- the first 256 reads vs the per-read host path
     out_h = os.path.join(WORK, "full_host") + "/"
@@ -1221,12 +1267,17 @@ def write_annotation(np, src, path, chr_len):
     return len(junctions) + 3
 
 
+ANNOT_OUT = os.path.join(WORK, "annot") + "/"
+ANNOT_NUMPY_OUT = os.path.join(WORK, "annot_numpy") + "/"
+
+
 def annot_scale(torch, np, fetch, tile_fetch, idx, data):
     """a two-pass run of the chr20-scale batch with a GTF given at mapping
     time, GeneCounts, TranscriptomeSAM and both BAMs, through the port's
-    entry point on the card, held against a run of the same reads and flags
-    with the numpy stitch engine on the index pass 2 mapped against
-    (saved by --sjdbInsertSave All).  Returns the main run's launches"""
+    entry point on the card; then a run of the same reads and flags with the
+    numpy stitch engine on the index pass 2 mapped against (saved by
+    --sjdbInsertSave All) is started in a process of its own, which
+    annot_oracle holds.  Returns (the main run's launches, that process)"""
     import shutil
     from star_tpu_torch import run
     from star_tpu_torch.genome import native, sjdb
@@ -1239,8 +1290,7 @@ def annot_scale(torch, np, fetch, tile_fetch, idx, data):
         np, os.path.join(data, "annot.gtf"), gtf,
         {n: int(l) for n, l in zip(gi0.chr_name, gi0.chr_length)})
     del gi0
-    out = os.path.join(WORK, "annot") + "/"
-    out_np = os.path.join(WORK, "annot_numpy") + "/"
+    out, out_np = ANNOT_OUT, ANNOT_NUMPY_OUT
     for d in (out, out_np):
         for x in ("", "_STARtmp", "_STARpass1", "_STARgenome"):
             shutil.rmtree(d + x if x else d, ignore_errors=True)
@@ -1341,18 +1391,32 @@ def annot_scale(torch, np, fetch, tile_fetch, idx, data):
         raise AssertionError("annot: pass 2's index lost junctions of "
                              "pass 1's")
 
-    # ---- the same reads and flags with the numpy engine, on pass 2's index
+    # ---- the same reads and flags with the numpy engine, on pass 2's index,
+    # beside phases 6-8
     gdir = out + "_STARgenome"
     for f in TR_FILES:
         shutil.copy(out + "_STARtmp/" + f, gdir)
-    os.environ["STAR_TPU_DEVICE_STITCH"] = "0"
-    t0 = time.time()
-    try:
-        run.align_reads(Parameters(["--genomeDir", gdir,
-                                    "--outFileNamePrefix", out_np, *flags]),
-                        device=DEVICE)
-    finally:
-        del os.environ["STAR_TPU_DEVICE_STITCH"]
+    with open(out_np.rstrip("/") + ".log", "wb") as err:
+        oracle = subprocess.Popen(
+            [sys.executable, "-m", "star_tpu_torch", "--genomeDir", gdir,
+             "--outFileNamePrefix", out_np, *flags], cwd=ROOT,
+            env={**os.environ, "STAR_TPU_DEVICE_STITCH": "0"},
+            stdout=subprocess.DEVNULL, stderr=err)
+    oracle.t0 = time.time()
+    return launches, oracle
+
+
+def annot_oracle(oracle):
+    """phase 5's check, held after phase 8: SJ.out.tab, both BAMs,
+    ReadsPerGene.out.tab and the transcriptome BAM of the two-pass run
+    identical to the numpy-engine run on pass 2's index"""
+    if oracle.wait() != 0:
+        with open(ANNOT_NUMPY_OUT.rstrip("/") + ".log") as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"annot: the numpy-engine run failed "
+                             f"({oracle.returncode}):\n{tail}")
+    t = time.time() - oracle.t0
+    out, out_np = ANNOT_OUT, ANNOT_NUMPY_OUT
     files = ["SJ.out.tab", "Aligned.out.bam", "Aligned.sortedByCoord.out.bam",
              "ReadsPerGene.out.tab", "Aligned.toTranscriptome.out.bam"]
     for f in files:
@@ -1362,9 +1426,8 @@ def annot_scale(torch, np, fetch, tile_fetch, idx, data):
     n_rec = len(bam_records(out + "Aligned.out.bam")[1])
     n_tr = len(bam_records(out + "Aligned.toTranscriptome.out.bam")[1])
     log(f"annot: {', '.join(files)} identical to the numpy-engine run on "
-        f"pass 2's index ({time.time() - t0:.2f} s); {n_rec} BAM records, "
-        f"{n_tr} transcriptome records")
-    return launches
+        f"pass 2's index ({t:.2f} s, beside phases 6-8); {n_rec} BAM "
+        f"records, {n_tr} transcriptome records")
 
 
 WBAM = ["--outSAMtype", "BAM", "Unsorted"]
@@ -1418,7 +1481,8 @@ TRANSFORM_INDEX_FILES = ("transformGenomeBlocks.tsv", "chrStart.txt",
                          "chrLength.txt", "chrName.txt", "exonInfo.tab",
                          "transcriptInfo.tab", "geneInfo.tab",
                          "sjdbList.out.tab")
-N_FUSION_PAIRS = 8192     # phase 6's pair set at the chr20 scale
+N_FUSION_PAIRS = 4096     # phase 6's pair set at the chr20 scale (halved
+                          # to keep the script inside the card's 1,200 s)
 N_FUSIONS = 16            # planted chr1-chr2 fusions in it
 N_FUSION_HOST = 512       # its first pairs, held against the host oracle
 LONG_ROUTE = "--tpuLongReads: long reads map on the host"
@@ -2237,6 +2301,251 @@ def solo_scale(torch, np, fetch, tile_fetch, data):
     return launches
 
 
+# ---- phase 8: the sharded suffix-array index
+SHARDS = 4                # index shards laid on the one card
+SHARDED_GOLDEN_FLAGS = ["--outSAMunmapped", "Within", "--quantMode",
+                        "GeneCounts", "--tpuShardedIndex", "1",
+                        "--tpuBatchSize", "128"]
+
+
+def sharded_goldens(fetch):
+    """phase 8 (a): the sharded check of star_tpu on cuda: se_gtf's SAM and
+    SJ.out.tab and se_quant's ReadsPerGene.out.tab through --tpuShardedIndex
+    1, through the command line (its default mesh: one shard on one card)
+    and at SHARDS shards (the default 2 x 2 split) on the one card; the
+    single-device index is never built"""
+    from star_tpu_torch import run
+    from star_tpu_torch.ops.sa_search import DeviceIndex
+    from star_tpu_torch.parallel import mesh as pm
+    from star_tpu_torch.params import Parameters
+    shapes = []
+
+    def build(real, gi, mesh, **k):
+        shapes.append((mesh.dp, mesh.ix))
+        return real(gi, mesh, **k)
+
+    def single(real, *a, **k):
+        raise AssertionError("sharded: the single-device index was built")
+    with Spy((pm.ShardedIndex, "build", build), (DeviceIndex, "build", single)):
+        for n, want in ((1, (1, 1)), (SHARDS, (2, SHARDS // 2))):
+            out = os.path.join(WORK, f"sharded_golden_{n}") + "/"
+            argv = ["--genomeDir", os.path.join(GOLD, "genome_idx_gtf"),
+                    "--readFilesIn", os.path.join(DATA, "reads_se.fastq"),
+                    "--outFileNamePrefix", out, *SHARDED_GOLDEN_FLAGS]
+            shapes.clear()
+            n0 = fetch.LAUNCHES
+            t0 = time.time()
+            if n == 1:
+                run.main(argv)
+            else:
+                run.align_reads(Parameters(argv), device=DEVICE,
+                                mesh=pm.make_mesh([DEVICE] * n))
+            for f, gold in (("Aligned.out.sam", "se_gtf"),
+                            ("SJ.out.tab", "se_gtf"),
+                            ("ReadsPerGene.out.tab", "se_quant")):
+                if not same_output(out, os.path.join(GOLD, gold) + "/", f):
+                    raise AssertionError(f"sharded golden, {n} shards: {f} "
+                                         "differs")
+            if shapes != [want] or fetch.LAUNCHES == n0:
+                raise AssertionError(f"sharded golden, {n} shards: meshes "
+                                     f"{shapes}, {fetch.LAUNCHES - n0} "
+                                     "fetch_window launches")
+            log(f"sharded: golden se_gtf + se_quant at {n} shards "
+                f"({want[0]} x {want[1]}"
+                f"{', the command line' if n == 1 else ''}): SAM, SJ.out.tab"
+                f" and ReadsPerGene.out.tab identical; "
+                f"{fetch.LAUNCHES - n0} fetch_window launches, "
+                f"{time.time() - t0:.2f} s")
+
+
+def sharded_scale(torch, np, fetch, tile_fetch, data, full):
+    """phase 8 (b): phase 4's batch on phase 4's index through
+    --tpuShardedIndex 1 with the suffix array split over SHARDS shards on
+    the card: SAM and SJ.out.tab byte-identical to phase 4's, and its seed
+    loop's fetch_window calls replayed (replay_sharded_seed); (c): the big
+    (int64, forward-G-only) layout forced on the same index and shards,
+    N_PROBES probes equal to the host mmp_search.  full: phase 4's
+    readings.  Returns (the main run's launches, the replay's timings)."""
+    from star_tpu_torch.align.seed import mmp_search
+    from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    from star_tpu_torch.ops import pipeline
+    from star_tpu_torch.parallel import mesh as pm
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+
+    idx = os.path.join(WORK, "idx")
+    gi = GenomeIndex.load(idx)
+    mesh = pm.make_mesh([DEVICE] * SHARDS, dp=1, ix=SHARDS)
+    reads = os.path.join(data, "reads_se.fastq")
+    out = os.path.join(WORK, "sharded") + "/"
+    P = Parameters(["--genomeDir", idx, "--readFilesIn", reads,
+                    "--outFileNamePrefix", out, "--outSAMunmapped", "Within",
+                    "--readMapNumber", str(N_READS),
+                    "--tpuBatchSize", str(N_READS), "--tpuShardedIndex", "1"])
+    pipeline.TIMING = True
+    reset_counts(ds, be, pipeline)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fetch.LAUNCHES = 0                           # counts of the main path
+    fetch.ROWS_LAUNCHES = 0
+    tile_fetch.LAUNCHES = 0
+    t0 = time.time()
+    try:
+        stats = align_reads(P, gi=gi, device=DEVICE, mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        pipeline.TIMING = False
+    wall = time.time() - t0
+    launches = {"fetch_window": fetch.LAUNCHES,
+                "fetch_rows": fetch.ROWS_LAUNCHES,
+                "tile_fetch": tile_fetch.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    sl = stitch_launches(ds)
+    seed = launches["fetch_window"] - sum(sl.values())
+    keys = [k for k in gi._device_cache if k[0] != "stitch"]
+    if [k[:4] for k in keys] != [("sharded", 128, 1, SHARDS)] or seed <= 0:
+        raise AssertionError(f"sharded: device index entries {keys}, "
+                             f"{seed} seed-loop fetch_window launches")
+    si = gi._device_cache[keys[0]][0]
+    idx_bytes = sum(t.numel() for d in (si.text, si.sai, si.sa)
+                    for t in d.values())
+    if stats.read_n != N_READS:
+        raise AssertionError(f"sharded: {stats.read_n} reads aligned")
+    full_out = os.path.join(WORK, "full") + "/"
+    if strip_header(out + "Aligned.out.sam") != \
+            strip_header(full_out + "Aligned.out.sam.device"):
+        raise AssertionError("sharded: SAM differs from phase 4's")
+    with open(out + "SJ.out.tab", "rb") as a, \
+            open(full_out + "SJ.out.tab.device", "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("sharded: SJ.out.tab differs from phase 4's")
+    tm = pipeline.TIMERS
+    log(f"sharded: {N_READS} reads on {SHARDS} shards (1 x {SHARDS}, "
+        f"{si.shard_rows} SA rows each) in {wall:.2f} s = "
+        f"{N_READS / wall:.1f} reads/s (phase 4, one index: "
+        f"{full['reads_s']:.1f}), index upload included; SAM and SJ.out.tab "
+        f"byte-identical to phase 4's; seed loop {tm['seed_loop']:.2f} s "
+        f"(phase 4: {full['timers'].get('seed_loop', 0):.2f} s); "
+        f"fetch_window launches {launches['fetch_window']} (seed loop {seed},"
+        f" grow {sl['fetch']}, finalize {sl['finalize']}, pack {sl['pack']})"
+        f"; sharded index {idx_bytes} B on the card; peak device memory "
+        f"{peak} B")
+    log(f"sharded: phases {pipeline.timing_report()}")
+    replayed = replay_sharded_seed(torch, np, fetch, gi, P,
+                                   gi._device_cache[keys[0]][1], si.ql,
+                                   full["seed_in"], seed)
+
+    # ---- (c) the big layout forced on the same index and shards
+    t0 = time.time()
+    big = pm.ShardedIndex.build(gi, mesh, ql=128, big=True)
+    t_build = time.time() - t0
+    if not big.g_only or any(t.numel() < big.shard_rows * 8
+                             for t in big.sa.values()):
+        raise AssertionError("sharded: the big layout is not int64 / G-only")
+    mmp = pm.make_sharded_mmp(big)
+    qs, qlen = probe_set(np, reads, 128)
+    n0 = fetch.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = [t.cpu() for t in mmp(torch.from_numpy(qs).to(DEVICE),
+                                torch.from_numpy(qlen).to(DEVICE))]
+    t_card = time.time() - t0
+    if any(t.dtype != torch.int64 for t in got):
+        raise AssertionError("sharded: big-layout results are not int64")
+    got = np.stack([t.numpy() for t in got], axis=1)
+    host = np.array([mmp_search(gi, qs[i, :qlen[i]]) for i in range(N_PROBES)])
+    if not np.array_equal(got, host):
+        bad = int((got != host).any(axis=1).sum())
+        raise AssertionError(f"sharded: {bad} of {N_PROBES} big-layout "
+                             "probes differ from the host oracle")
+    log(f"sharded: big layout (int64 SA rows, G alone: "
+        f"{sum(t.numel() for t in big.text.values())} text bytes) on "
+        f"{SHARDS} shards, built in {t_build:.1f} s: {N_PROBES} probes equal "
+        f"the host mmp_search ({t_card:.3f} s on the card, "
+        f"{fetch.LAUNCHES - n0} fetch_window launches)")
+    gi._device_cache.clear()
+    return launches, replayed
+
+
+def replay_sharded_seed(torch, np, fetch, gi, P, mmp, ql, seed_in, want):
+    """the sharded batch's seed loop again, from phase 4's dumped inputs
+    (the same reads), with every fetch_window call recorded; each call held
+    against the plain window and timed by time_calls.  want: the main
+    run's seed-loop launches, which the replay must repeat"""
+    from star_tpu_torch.ops import pipeline
+    read_mat, chains = seed_in
+    D = int(getattr(gi, "sa_sparse_d", 1)) or 1
+    put = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=DEVICE)
+
+    def run():
+        pipeline.make_fused_seed_fn(mmp, ql, D)(
+            torch.as_tensor(read_mat, device=DEVICE),
+            *[put(a) for a in chains], int(P.seedMapMin))
+    calls = record_fetches(torch, fetch, run)
+    if len(calls) != want or any(c[0] != "seed" for c in calls):
+        raise AssertionError(f"sharded replay: {len(calls)} fetch_window "
+                             f"calls, the main path's seed loop made {want}")
+    r = time_calls(torch, fetch, calls)
+    log(f"sharded: the seed loop's fetch_window calls (replayed): "
+        f"{r['launches']} launches, {r['rows']} rows, widths {r['widths']}: "
+        f"each equal to the plain window; kernel {r['ms']:.3f} / "
+        f"{r['ms_again']:.3f} ms (torch.profiler saw {r['profiler_saw']} of "
+        f"its {r['launches']} kernels), bound {r['bound_ms']:.3f} ms "
+        f"({r['bytes']} B at {HBM_BW:.3g} B/s), library "
+        f"{r['library_ms']:.3f} ms, old fetch_rows + cut {r['old_ms']:.3f} "
+        f"ms, plain {r['plain_ms']:.3f} ms; wrapper host "
+        f"{r['host_us_per_call']:.1f} us per call")
+    return r
+
+
+def nccl_merges(torch, np):
+    """phase 8 (d): a single-rank NCCL group on the card: psum_merge over a
+    2 x 2 mesh's dp rows and merge_keyed_counts on CUDA tensors, keys and
+    counts past 2^32, against numpy; the group is destroyed after"""
+    import socket
+    import torch.distributed as dist
+    from star_tpu_torch.parallel import dist as pdist
+    from star_tpu_torch.parallel import mesh as pm
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    t0 = time.time()
+    devices = pdist.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = pm.make_mesh(devices * SHARDS)
+        if dist.get_backend() != "nccl" or mesh.comm_device.type != "cuda" \
+                or mesh.dp_group is None:
+            raise AssertionError(f"nccl: backend {dist.get_backend()}, "
+                                 f"collectives on {mesh.comm_device}")
+        rng = np.random.default_rng(23)
+        tables = (1 << 40) + rng.integers(0, 1 << 33, size=(mesh.dp, 3, 1000))
+        got = pm.psum_merge(torch.from_numpy(tables).to(DEVICE), mesh)
+        if not got.is_cuda or not np.array_equal(got.cpu().numpy(),
+                                                 tables.sum(axis=0)):
+            raise AssertionError("nccl: psum_merge differs from numpy")
+        keys = (1 << 33) + rng.integers(0, 5000, size=4000) * (1 << 20)
+        cnts = (1 << 32) + rng.integers(1, 9, size=(4000, 2))
+        all_keys, merged = pdist.merge_keyed_counts(
+            torch.from_numpy(keys).to(DEVICE),
+            torch.from_numpy(cnts).to(DEVICE), mesh)
+        want_keys, inv = np.unique(keys, return_inverse=True)
+        want = np.zeros((len(want_keys), 2), np.int64)
+        np.add.at(want, inv, cnts)
+        if not (all_keys.is_cuda and np.array_equal(all_keys.cpu().numpy(),
+                                                     want_keys)
+                and np.array_equal(merged.cpu().numpy(), want)):
+            raise AssertionError("nccl: merge_keyed_counts differs from numpy")
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    log(f"nccl: single-rank group on {devices[0]}: psum_merge of "
+        f"{tables.shape} int64 tables and merge_keyed_counts of {len(keys)} "
+        f"keys ({len(want_keys)} distinct, past 2^32) equal numpy; group "
+        f"destroyed ({time.time() - t0:.2f} s)")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2253,6 +2562,7 @@ def main():
     data = os.path.join(WORK, "data")
     t_start = time.time()
     data_proc = start_data(data)
+    oracle = None
     try:
         t0 = time.time()
         sources = ["fetch_rows"]
@@ -2280,8 +2590,8 @@ def main():
         launches, replay = phase_full(torch, np, fetch, data_proc, data)
         phase_done("full")
         annot_goldens(fetch)
-        annot = annot_scale(torch, np, fetch, tile_fetch,
-                            os.path.join(WORK, "idx"), data)
+        annot, oracle = annot_scale(torch, np, fetch, tile_fetch,
+                                    os.path.join(WORK, "idx"), data)
         phase_done("annot")
         fusion_goldens(fetch)
         fusion = fusion_scale(torch, np, fetch, tile_fetch,
@@ -2290,7 +2600,14 @@ def main():
         solo_goldens(fetch)
         solo = solo_scale(torch, np, fetch, tile_fetch, data)
         phase_done("solo")
-        launches = {k: v + annot[k] + fusion[k] + solo[k]
+        sharded_goldens(fetch)
+        sharded, sharded_seed = sharded_scale(torch, np, fetch, tile_fetch,
+                                              data, replay)
+        nccl_merges(torch, np)
+        phase_done("sharded")
+        annot_oracle(oracle)
+        phase_done("annot's numpy-engine check")
+        launches = {k: v + annot[k] + fusion[k] + solo[k] + sharded[k]
                     for k, v in launches.items()}
         for k in kern:
             k["launches"] = launches[k["name"]]
@@ -2299,17 +2616,21 @@ def main():
             "name": "fetch_window", "route": "cuda",
             "source": "star_tpu_torch/ops/csrc/fetch_rows.cu",
             "replaces": "star_tpu/ops/fetch.py:83",
-            "launches": launches["fetch_window"], "max_abs_err": win_err,
-            # the main path's calls, all phases, launched again back to back
+            "launches": launches["fetch_window"],
+            "max_abs_err": max(win_err, sharded_seed["max_abs_err"],
+                               *(r["max_abs_err"] for r in ph.values())),
+            # phase 4's calls, all its phases, launched again back to back
             **{k: sum(r[k] for r in ph.values())
                for k in ("ms", "ms_again", "plain_ms", "bound_ms",
                          "library_ms", "old_ms")},
-            "bound_by": "bytes", "phases": ph,
+            "bound_by": "bytes", "phases": {**ph,
+                                            "sharded_seed": sharded_seed},
             "widths_262144_starts": widths})
     finally:
-        if data_proc is not None and data_proc.poll() is None:
-            data_proc.kill()
-            data_proc.wait()
+        for p in (data_proc, oracle):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
 
     log(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kern}))

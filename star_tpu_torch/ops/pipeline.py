@@ -64,18 +64,18 @@ def timing_report() -> str:
     return " ".join(f"{k}={v:.2f}s" for k, v in sorted(TIMERS.items()))
 
 
-def make_fused_seed_fn(di: DeviceIndex, D: int):
+def make_fused_seed_fn(mmp, QL: int, D: int):
     """the whole reference seed loop (ReadAlign_mapOneRead.cpp:65-78) as one
     round loop over device tensors: chains stay on the device, each round
-    probes every live chain (x D sparse phase offsets) and writes its probe
-    records into [NC, MAXP, D] tables at column k; entries of rounds a chain
-    never ran stay 0.  Returns
+    probes every live chain (x D sparse phase offsets) with mmp (the
+    single-device sa_search.make_mmp_fn or the sharded
+    parallel.mesh.make_sharded_mmp, QL its query window) and writes its
+    probe records into [NC, MAXP, D] tables at column k; entries of rounds a
+    chain never ran stay 0.  Returns
         fused(read_mat [R, RW] int8, c_read, c_pstart, c_plen, c_dir,
               c_istl [NC] int64, smin)
           -> (oml, onr, olo, ohi [NC, MAXP, D], mbest [NC, MAXP],
               nprobes [NC]) int64 tensors."""
-    mmp = make_mmp_fn(di)
-    QL = di.ql
 
     def fused(read_mat, c_read, c_pstart, c_plen, c_dir, c_istl, smin):
         NC = c_read.shape[0]
@@ -122,27 +122,44 @@ def make_fused_seed_fn(di: DeviceIndex, D: int):
 
 
 class DeviceAligner:
-    def __init__(self, gi, P, batch_size: int = None, device=None):
+    def __init__(self, gi, P, batch_size: int = None, device=None, mesh=None):
+        """device: where the batch and the stitch engine run (default
+        cuda).  mesh: the shards of the row-sharded index the seed search
+        runs on (parallel/mesh.py; run.py makes it for --tpuShardedIndex 1),
+        else one index on device."""
         self.gi = gi
         self.P = P
         self.batch_size = batch_size or P.tpuBatchSize
         self.device = resolve_device(device)
         self.host = ReadAligner(gi, P)
-        self.di = None
+        self.mesh = mesh
+        self.mmp = None
         self._ql = None
 
     def _ensure_kernel(self, max_read_len: int):
-        """device index tables for queries up to max_read_len; cached on the
-        genome index object itself, so repeated align_reads calls in one
-        process share one upload and a new index never meets a stale entry"""
+        """the MMP over device index tables for queries up to max_read_len;
+        the tables are cached on the genome index object itself, so repeated
+        align_reads calls in one process share one upload and a new index
+        never meets a stale entry.  The sharded index (with its MMP) is
+        keyed by the mesh's shape and shards."""
         ql = ((max_read_len + 2 + 127) // 128) * 128
-        if self.di is None or ql > self._ql:
-            key = (ql, str(self.device))
+        if self.mmp is None or ql > self._ql:
             cache = self.gi._device_cache
-            if key not in cache:
-                cache[key] = DeviceIndex.build(self.gi, ql=ql,
-                                               device=self.device)
-            self.di = cache[key]
+            if self.mesh is not None:
+                from ..parallel.mesh import ShardedIndex, make_sharded_mmp
+                m = self.mesh
+                key = ("sharded", ql, m.dp, m.ix,
+                       tuple((s.row, s.col, str(s.device)) for s in m.shards))
+                if key not in cache:
+                    si = ShardedIndex.build(self.gi, m, ql=ql)
+                    cache[key] = (si, make_sharded_mmp(si))
+                self.mmp = cache[key][1]
+            else:
+                key = (ql, str(self.device))
+                if key not in cache:
+                    cache[key] = DeviceIndex.build(self.gi, ql=ql,
+                                                   device=self.device)
+                self.mmp = make_mmp_fn(cache[key])
             self._ql = ql
 
     # -------------------------------------------------------------- batching
@@ -263,7 +280,7 @@ class DeviceAligner:
         D = int(getattr(self.gi, "sa_sparse_d", 1)) or 1
         dev = self.device
         put = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
-        fused = make_fused_seed_fn(self.di, D)
+        fused = make_fused_seed_fn(self.mmp, self._ql, D)
         out = fused(torch.as_tensor(read_mat, device=dev),
                     *[put(a) for a in (c_read, c_pstart, c_plen, c_dir,
                                        c_istl)],

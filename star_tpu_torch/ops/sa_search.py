@@ -11,7 +11,10 @@ Every random access is one byte window of ops.fetch.fetch_window, called
 through the module attribute: the packed SAi pair (value and flag bits in one
 int32 each, 8 bytes), the SA row (4 bytes) and the suffix text (QL bytes).
 Each search loop is a Python ``while`` that runs until every lane has
-converged, so the typical SAi-narrowed bisection ends in a few steps.
+converged, so the typical SAi-narrowed bisection ends in a few steps.  The
+SAi descent (sai_descent), the case resolution (resolve_mmp) and the two
+searches' steps (neighbour_lcp, prefix_bounds) also serve the sharded index
+(parallel/mesh.py).
 
 Reference behavior replicated: source/ReadAlign_maxMappableLength2strands.cpp
 (SAi descent + the 3 result cases), source/SuffixArrayFuns.cpp:133-207
@@ -25,6 +28,7 @@ Byte offsets into the tables are int64.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -81,6 +85,182 @@ class DeviceIndex:
         )
 
 
+def lcp_lt(g, qpad, qlen):
+    """lcp(query, suffix bytes g) and suffix<query, over the query window.
+    qpad padding: -1 => query smaller (prefix semantics), 127 => larger."""
+    neq = qpad != g
+    has = neq.any(dim=1)
+    # argmax returns the index of the FIRST maximum: the first mismatch
+    first = neq.to(torch.uint8).argmax(dim=1)
+    lcp = torch.minimum(torch.where(has, first, qpad.shape[1]), qlen)
+    qc = qpad.gather(1, first[:, None])[:, 0]
+    gc = g.gather(1, first[:, None])[:, 0]
+    return lcp, has & (gc < qc)
+
+
+# SAi entry layouts: (dtype, value mask, N-flag bit); the sign bit marks an
+# absent prefix in both.  DeviceIndex packs an entry into one int32; the
+# sharded index (parallel/mesh.py) into one int64, for n_sa >= 2^30.
+SAI32 = (torch.int32, _VAL_MASK, _NBIT)
+SAI64 = (torch.int64, (1 << 62) - 1, 1 << 62)
+
+
+def sai_descent(saif, layout, level_start, n_sa, q, qlen, valid):
+    """SAi prefix descent of a batch (reference: reduce Lind while the
+    prefix is absent) over the packed SAi byte table saif.  Returns
+    (lind, lmax, isa1, isa2, i2s, no_n, good, has_next) [B] tensors, isa2
+    the reference's SAi bound and i2s the tight one (see make_mmp_fn).
+    Lanes not valid do no fetch and come out as case 1 of make_mmp_fn."""
+    dtype, val_mask, nbit = layout
+    esize = torch.tensor([], dtype=dtype).element_size()
+    L = len(level_start) - 1
+    B = q.shape[0]
+    dev = q.device
+    lvl_start = torch.tensor(level_start[:-1], dtype=torch.int64, device=dev)
+    lvl_end = torch.tensor(level_start[1:], dtype=torch.int64, device=dev)
+
+    # SAi prefix values at each level (base-4 over raw byte codes,
+    # bug-compatible with the reference's unchecked index arithmetic)
+    qn = q[:, :L].clamp(min=0).long()
+    acc = torch.zeros(B, dtype=torch.int64, device=dev)
+    prefix_vals = []
+    for l in range(L):
+        acc = acc * 4 + qn[:, l]
+        prefix_vals.append(acc)
+    prefix_vals = torch.stack(prefix_vals, dim=1)  # [B, L]; level l+1 at col l
+
+    lmax = torch.clamp(qlen, max=L)
+    ind = prefix_vals.gather(1, (lmax - 1).clamp(min=0)[:, None])[:, 0]
+
+    # typically resolves in one fetch because full-depth prefixes of real
+    # reads are present
+    lind = lmax.clamp(min=1)
+    done = ~valid
+    z = torch.zeros(B, dtype=torch.int64, device=dev)
+    v1, v2, off = z, z, z
+    while bool((~done).any()):
+        off_n = lvl_start[lind - 1] + ind
+        # entries off_n and off_n + 1; the bytes of each are reinterpreted,
+        # so "prefix absent" stays in the sign bit
+        pair = fetch.fetch_window(saif, torch.where(done, -1, off_n * esize),
+                                  2 * esize).view(dtype)
+        v1 = torch.where(done, v1, pair[:, 0].long())
+        v2 = torch.where(done, v2, pair[:, 1].long())
+        off = torch.where(done, off, off_n)
+        absent = v1 < 0
+        step = ~done & absent & (lind > 1)
+        done = done | ~absent | (lind <= 1)
+        lind = torch.where(step, lind - 1, lind)
+        ind = torch.where(step, ind >> 2, ind)
+
+    isa1 = v1 & val_mask
+    no_n = (v1 & nbit) == 0
+    has_next = off + 1 < lvl_end[lind - 1]
+    good = has_next & (v2 >= 0)
+    isa2 = torch.where(good, (v2 & val_mask) - 1, n_sa - 1)
+    i2s = torch.where(has_next, (v2 & val_mask) - 1, n_sa - 1)
+    return lind, lmax, isa1, isa2, i2s, no_n, good, has_next
+
+
+def resolve_mmp(L, q, qlen, valid, desc, best_lcp, equal_range):
+    """(maxL, nrep, lo, hi) [B] int64 of a batch from its SAi descent desc
+    (sai_descent) and two searches over the suffix array rows [lo, hi):
+        best_lcp(q, qlen, lo, hi, lanes) -> [B] the longest lcp of the
+            query's insertion neighbours (neighbour_lcp);
+        equal_range(q, best, lo, hi, lanes) -> ([B], [B]) the first and
+            one past the last row that share the query's first best bases
+            (prefix_bounds).
+    make_mmp_fn searches one index; parallel/mesh.py make_sharded_mmp
+    searches each shard's clip of the rows and combines."""
+    lind, lmax, isa1, isa2, i2s, no_n, good, has_next = desc
+    # i2s is the tight search bound even when the next SAi entry is absent:
+    # absent entries store the next PRESENT block start, so rows with this
+    # prefix still end at value-1.  The reference searches [iSA1, nSA-1]
+    # there; the result is provably identical because the query starts with
+    # the present prefix, so its insertion point, lcp neighbors and equal
+    # range all live inside the tight interval.  Only the returned bounds of
+    # a 0-length match use the reference's loose i2 (isa2, below).
+    case1 = ((lind < L) & no_n & good) | ~valid
+    case2 = ~case1 & (isa1 == isa2) & no_n & good
+    # case 4 — search-free resolution the reference misses: if the descent
+    # stopped below Lmax, the (Lind+1)-prefix is ABSENT, so maxL == Lind
+    # exactly and the equal range is the whole SAi block [isa1, i2s].  Same
+    # when Lind == qlen: the full query matched at SAi level.  Requires
+    # has_next so the block end is known, and no_n: an N-flagged block also
+    # holds rows that leave the prefix at a spacer or the text end (e.g.
+    # "0" + spacer inside the "03" block), which the full search excludes.
+    # (star_tpu's case 4 omits no_n and so differs from the host oracle on
+    # such queries.)  The reference runs its full double binary search here
+    # with identical output.
+    case4 = ~case1 & ~case2 & has_next & no_n \
+        & ((lind < lmax) | (lind >= qlen))
+    case3 = ~case1 & ~case2 & ~case4
+    l0 = torch.where(good & no_n, lind, 0)
+
+    # ---- insertion-point neighbours in [isa1, i2s]: case 3, and case 2's
+    # single row
+    best = best_lcp(q, qlen, isa1, i2s + 1, case2 | case3)
+    best = torch.where(case3, torch.maximum(best, l0), best)
+
+    # ---- equal range of the best prefix within [isa1, i2s] (case 3)
+    nz = case3 & (best > 0)
+    lo1, end1 = equal_range(q, best, isa1, i2s + 1, nz)
+    # a 0-length match reports the reference's loose [iSA1, iSA2] bounds
+    lo1 = torch.where(nz, lo1, isa1)
+    hi1 = torch.where(nz, end1 - 1, isa2)
+
+    # ---- combine the cases
+    max_l = torch.where(case1 | case4, lind,
+                        torch.where(case2 | nz, best, 0))
+    lo_out = torch.where(case1 | case2 | case4, isa1, lo1)
+    hi_out = torch.where(case1, isa2,
+                         torch.where(case2, isa1,
+                                     torch.where(case4, i2s, hi1)))
+    return max_l, hi_out - lo_out + 1, lo_out, hi_out
+
+
+def lower_bound(suffix_window, qpad, qlen, lo, hi):
+    """first row in [lo0, hi0) whose suffix (suffix_window(rows, run) ->
+    [B, QL] bytes) >= query; the loop runs until every lane has converged"""
+    while bool((lo < hi).any()):
+        run = lo < hi
+        mid = (lo + hi) // 2
+        _, lt = lcp_lt(suffix_window(mid, run), qpad, qlen)
+        lo = torch.where(run & lt, mid + 1, lo)
+        hi = torch.where(run & ~lt, mid, hi)
+    return lo
+
+
+def neighbour_lcp(suffix_window, q, qlen, lo, hi, lanes):
+    """the longest lcp of the query's two insertion neighbours among rows
+    [lo, hi) (0 off lanes and where the rows are empty)"""
+    live = lanes & (lo < hi)
+    ins = lower_bound(suffix_window, q, qlen, torch.where(live, lo, 0),
+                      torch.where(live, hi, 0))
+    run_a = live & (ins < hi)
+    run_b = live & (ins > lo)
+    g = suffix_window(torch.cat([torch.minimum(ins, hi - 1),
+                                 torch.maximum(ins - 1, lo)]),
+                      torch.cat([run_a, run_b]))
+    B = q.shape[0]
+    l2, _ = lcp_lt(g, torch.cat([q, q]), torch.cat([qlen, qlen]))
+    return torch.maximum(torch.where(run_a, l2[:B], 0),
+                         torch.where(run_b, l2[B:], 0))
+
+
+def prefix_bounds(suffix_window, q, best, lo, hi, lanes):
+    """the first and one past the last of rows [lo, hi) whose suffix starts
+    with the query's first best bases (equal where there is none)"""
+    B, QL = q.shape
+    keep = torch.arange(QL, device=q.device)[None, :] < best[:, None]
+    qr = torch.cat([torch.where(keep, q, -1), torch.where(keep, q, 127)])
+    b0 = torch.where(lanes, lo, 0)
+    b1 = torch.where(lanes, hi, 0)
+    bounds = lower_bound(suffix_window, qr, torch.cat([best, best]),
+                         torch.cat([b0, b0]), torch.cat([b1, b1]))
+    return bounds[:B], bounds[B:]
+
+
 def make_mmp_fn(di: DeviceIndex):
     """returns a function
         mmp(queries [B, QL] int8 (-1 padded), qlen [B], valid=None)
@@ -88,23 +268,8 @@ def make_mmp_fn(di: DeviceIndex):
     on tensors on di.device."""
     L = di.n_levels
     QL = di.ql
-    n_sa = di.n_sa
     dev = di.device
-    lvl_start = torch.tensor(di.level_start[:-1], dtype=torch.int64, device=dev)
-    lvl_end = torch.tensor(di.level_start[1:], dtype=torch.int64, device=dev)
     t2f, saf, saif = di.t2f, di.saf, di.saif
-
-    def lcp_lt(g, qpad, qlen):
-        """lcp(query, suffix bytes g) and suffix<query, over the QL window.
-        qpad padding: -1 => query smaller (prefix semantics), 127 => larger."""
-        neq = qpad != g
-        has = neq.any(dim=1)
-        # argmax returns the index of the FIRST maximum: the first mismatch
-        first = neq.to(torch.uint8).argmax(dim=1)
-        lcp = torch.minimum(torch.where(has, first, QL), qlen)
-        qc = qpad.gather(1, first[:, None])[:, 0]
-        gc = g.gather(1, first[:, None])[:, 0]
-        return lcp, has & (gc < qc)
 
     def suffix_window(rows, run):
         """SA rows -> suffix byte windows [B, QL]; lanes not in run are
@@ -113,128 +278,16 @@ def make_mmp_fn(di: DeviceIndex):
         pos = sa.view(torch.int32)[:, 0].long()
         return fetch.fetch_window(t2f, torch.where(run, pos, -1), QL)
 
-    def lower_bound(qpad, qlen, lo, hi):
-        """first row in [lo0, hi0) whose suffix >= query; the loop runs
-        until every lane has converged"""
-        while bool((lo < hi).any()):
-            run = lo < hi
-            mid = (lo + hi) // 2
-            g = suffix_window(mid, run)
-            _, lt = lcp_lt(g, qpad, qlen)
-            lo = torch.where(run & lt, mid + 1, lo)
-            hi = torch.where(run & ~lt, mid, hi)
-        return lo
+    best_lcp = functools.partial(neighbour_lcp, suffix_window)
+    equal_range = functools.partial(prefix_bounds, suffix_window)
 
     def mmp(queries, qlen, valid=None):
-        B = queries.shape[0]
         q = queries.clamp(min=-1)
         qlen = qlen.long()
         if valid is None:
-            valid = torch.ones(B, dtype=torch.bool, device=dev)
-
-        # ---- SAi prefix values at each level (base-4 over raw byte codes,
-        # bug-compatible with the reference's unchecked index arithmetic)
-        qn = q[:, :L].clamp(min=0).long()
-        acc = torch.zeros(B, dtype=torch.int64, device=dev)
-        prefix_vals = []
-        for l in range(L):
-            acc = acc * 4 + qn[:, l]
-            prefix_vals.append(acc)
-        prefix_vals = torch.stack(prefix_vals, dim=1)  # [B, L]; level l+1 at col l
-
-        lmax = torch.clamp(qlen, max=L)
-        ind = prefix_vals.gather(1, (lmax - 1).clamp(min=0)[:, None])[:, 0]
-
-        # ---- SAi descent (reference: reduce Lind while prefix absent);
-        # typically resolves in one fetch because full-depth prefixes of real
-        # reads are present
-        lind = lmax.clamp(min=1)
-        done = ~valid
-        z = torch.zeros(B, dtype=torch.int64, device=dev)
-        v1, v2, off = z, z, z
-        while bool((~done).any()):
-            off_n = lvl_start[lind - 1] + ind
-            # entries off_n and off_n + 1; the four bytes of each are
-            # reinterpreted, so "prefix absent" stays in the sign bit
-            pair = fetch.fetch_window(saif, torch.where(done, -1, off_n * 4),
-                                      8).view(torch.int32)
-            v1 = torch.where(done, v1, pair[:, 0].long())
-            v2 = torch.where(done, v2, pair[:, 1].long())
-            off = torch.where(done, off, off_n)
-            absent = v1 < 0
-            step = ~done & absent & (lind > 1)
-            done = done | ~absent | (lind <= 1)
-            lind = torch.where(step, lind - 1, lind)
-            ind = torch.where(step, ind >> 2, ind)
-
-        isa1 = v1 & _VAL_MASK
-        no_n = (v1 & _NBIT) == 0
-        has_next = off + 1 < lvl_end[lind - 1]
-        good = has_next & (v2 >= 0)
-        isa2 = torch.where(good, (v2 & _VAL_MASK) - 1, n_sa - 1)
-        # Tight search bound even when the next SAi entry is absent: absent
-        # entries store the next PRESENT block start, so rows with this
-        # prefix still end at value-1.  The reference searches [iSA1, nSA-1]
-        # there; the result is provably identical because the query starts
-        # with the present prefix, so its insertion point, lcp neighbors and
-        # equal range all live inside the tight interval.  Only the returned
-        # bounds of a 0-length match use the reference's loose i2 (below).
-        i2s = torch.where(has_next, (v2 & _VAL_MASK) - 1, n_sa - 1)
-
-        case1 = ((lind < L) & no_n & good) | ~valid
-        case2 = ~case1 & (isa1 == isa2) & no_n & good
-        # case 4 — search-free resolution the reference misses: if the
-        # descent stopped below Lmax, the (Lind+1)-prefix is ABSENT, so
-        # maxL == Lind exactly and the equal range is the whole SAi block
-        # [isa1, i2s].  Same when Lind == qlen: the full query matched at
-        # SAi level.  Requires has_next so the block end is known, and no_n:
-        # an N-flagged block also holds rows that leave the prefix at a
-        # spacer or the text end (e.g. "0" + spacer inside the "03" block),
-        # which the full search excludes.  (star_tpu's case 4 omits no_n and
-        # so differs from the host oracle on such queries.)  The reference
-        # runs its full double binary search here with identical output.
-        case4 = ~case1 & ~case2 & has_next & no_n \
-            & ((lind < lmax) | (lind >= qlen))
-        case3 = ~case1 & ~case2 & ~case4
-        l0 = torch.where(good & no_n, lind, 0)
-
-        # ---- case-3 insertion-point search in [i1, i2s]
-        i1, i2 = isa1, i2s
-        ins = lower_bound(q, qlen, torch.where(case3, i1, 0),
-                          torch.where(case3, i2 + 1, 0))
-
-        # ---- neighbor lcps (case 3) + the case-2 single compare, one batch
-        rows_a = torch.where(case2, isa1, torch.minimum(ins, i2))
-        rows_b = torch.where(case2, isa1, torch.maximum(ins - 1, i1))
-        run_a = case2 | (case3 & (ins <= i2))
-        run_b = case3 & (ins - 1 >= i1)
-        g2 = suffix_window(torch.cat([rows_a, rows_b]),
-                           torch.cat([run_a, run_b]))
-        l2, _ = lcp_lt(g2, torch.cat([q, q]), torch.cat([qlen, qlen]))
-        l_a = torch.where(run_a, l2[:B], 0)
-        l_b = torch.where(run_b, l2[B:], 0)
-        best = torch.maximum(torch.maximum(l_a, l_b),
-                             torch.where(case3, l0, 0))
-
-        # ---- equal range of the best prefix within [i1, i2] (case 3)
-        nz = case3 & (best > 0)
-        keep = torch.arange(QL, device=dev)[None, :] < best[:, None]
-        qr = torch.cat([torch.where(keep, q, -1), torch.where(keep, q, 127)])
-        b0 = torch.where(nz, i1, 0)
-        b1 = torch.where(nz, i2 + 1, 0)
-        bounds = lower_bound(qr, torch.cat([best, best]),
-                             torch.cat([b0, b0]), torch.cat([b1, b1]))
-        # a 0-length match reports the reference's loose [iSA1, iSA2] bounds
-        lo1 = torch.where(nz, bounds[:B], isa1)
-        hi1 = torch.where(nz, bounds[B:] - 1, isa2)
-
-        # ---- combine the cases
-        max_l = torch.where(case1 | case4, lind,
-                            torch.where(case2, l_a, torch.where(nz, best, 0)))
-        lo_out = torch.where(case1 | case2 | case4, isa1, lo1)
-        hi_out = torch.where(case1, isa2,
-                             torch.where(case2, isa1,
-                                         torch.where(case4, i2s, hi1)))
-        return max_l, hi_out - lo_out + 1, lo_out, hi_out
+            valid = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
+        desc = sai_descent(saif, SAI32, di.level_start, di.n_sa, q, qlen,
+                           valid)
+        return resolve_mmp(L, q, qlen, valid, desc, best_lcp, equal_range)
 
     return mmp

@@ -172,6 +172,38 @@ class GeneCounts:
                         + "\n")
 
 
+class ShardedGeneCounts:
+    """gene counting over a mesh of index shards: reads are routed
+    round-robin to dp partial counters; the final merge is psum_merge, a
+    sum over the dp rows and an all_reduce across ranks (the analog of the
+    reference's thread-0 count reduction, source/STAR.cpp:258-265)."""
+
+    def __init__(self, tr: Transcriptome, mesh):
+        self.mesh = mesh
+        self.dp = mesh.dp
+        self.parts = [GeneCounts(tr) for _ in range(self.dp)]
+        self._i = 0
+
+    def add_read(self, transcripts, n_tr: int):
+        out = self.parts[self._i % self.dp].add_read(transcripts, n_tr)
+        self._i += 1
+        return out
+
+    def write(self, path: str, n_unmapped: int):
+        from ..parallel.mesh import psum_merge
+        merged = self.parts[0]
+        stacked = np.stack([p.counts for p in self.parts])
+        merged.counts = psum_merge(stacked, self.mesh)
+        merged.c_none = psum_merge(np.stack([p.c_none for p in self.parts]),
+                                   self.mesh)
+        merged.c_ambig = psum_merge(np.stack([p.c_ambig for p in self.parts]),
+                                    self.mesh)
+        merged.c_multi = int(psum_merge(
+            np.array([p.c_multi for p in self.parts], dtype=np.int64),
+            self.mesh))
+        merged.write(path, n_unmapped)
+
+
 # ------------------------------------------------------- TranscriptomeSAM
 def align_to_transcript(aG: Transcript, tr_s1: int, tr_str1: int,
                         ex_se, ex_len_cum, ex_n: int, lread: int) -> Optional[Transcript]:

@@ -12,8 +12,9 @@ WithinBAM), the PE mate-overlap merge, long reads, SNP tags and WASP, and the
 STARconsensus genome transform, single- and paired-end, and STARsolo
 (CB_UMI_Simple, CB_UMI_Complex, SmartSeq, CB_samTagOut; solo/).  The device
 path runs the seed search and the stitch engine on the GPU (ops/pipeline.py
-DeviceAligner); the host runs the rest.  Options whose stages are not ported
-yet stop the run with a message that names them.
+DeviceAligner), on one device or on the suffix array row-sharded over a
+mesh of shards (--tpuShardedIndex 1, parallel/mesh.py); the host runs the
+rest.
 
 With pipeline.TIMING on, the host stages of this module add to
 pipeline.TIMERS: sjdb_insert (junction collection, insertion and
@@ -39,19 +40,6 @@ from .io.sam import sam_header, write_read_sam
 from .io.sj import SJCollector
 from .ops.pipeline import _tick
 from .stats import RunStats
-
-
-def _not_ported(P: Parameters):
-    """options outside this port's slices -> the option names"""
-    checks = [
-        ("--tpuShardedIndex", bool(getattr(P, "tpuShardedIndex", 0))),
-    ]
-    return [name for name, on in checks if on]
-
-
-def _refuse(names):
-    raise SystemExit("EXITING: option(s) not yet ported to star_tpu_torch: "
-                     + ", ".join(names))
 
 
 def genome_generate(P: Parameters):
@@ -228,14 +216,17 @@ def _pristine(gi):
 
 
 def align_reads(P: Parameters, gi: Optional[GenomeIndex] = None,
-                use_device=None, device=None) -> RunStats:
+                use_device=None, device=None, mesh=None) -> RunStats:
     """align P.readFilesIn against the index; the seed search and the stitch
     engine run on `device` (default cuda) unless use_device is False (or
     --tpuUseDevice 0), which takes the per-read host oracle.  Each pass of a
-    two-pass run maps on the same device, against its own index."""
-    bad = _not_ported(P)
-    if bad:
-        _refuse(bad)
+    two-pass run maps on the same device, against its own index.  With
+    --tpuShardedIndex 1 the seed search runs on the index row-sharded over
+    `mesh` (parallel/mesh.py make_mesh; default one shard per visible card,
+    or one on `device` where the caller names it) and the gene counts merge
+    over its dp rows."""
+    if mesh is not None and not getattr(P, "tpuShardedIndex", 0):
+        raise ValueError("align_reads: a mesh needs --tpuShardedIndex 1")
     if gi is None:
         gi = GenomeIndex.load(P.genomeDir)
     P.trInfoDir = P.genomeDir
@@ -265,7 +256,7 @@ def align_reads(P: Parameters, gi: Optional[GenomeIndex] = None,
                      quantMode=["-"], genomeTransformOutput=["None"],
                      readMapNumber=(P.twopass1readsN
                                     if P.twopass1readsN >= 0 else P.readMapNumber))
-        _run_mapping(P1, gi, use_device, device)
+        _run_mapping(P1, gi, use_device, device, mesh)
         # pass 1's device tables go before pass 2 uploads its own index
         gi._device_cache.clear()
         from .genome.sjdb import insert_junctions
@@ -288,7 +279,7 @@ def align_reads(P: Parameters, gi: Optional[GenomeIndex] = None,
         gi.var = Variation(
             P, gi.chr_start, {n: i for i, n in enumerate(gi.chr_name)})
 
-    return _run_mapping(P, gi, use_device, device)
+    return _run_mapping(P, gi, use_device, device, mesh)
 
 
 def _sjdb_insert_save(gi, P):
@@ -301,7 +292,7 @@ def _sjdb_insert_save(gi, P):
 
 
 def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
-                 device=None) -> RunStats:
+                 device=None, mesh=None) -> RunStats:
     prefix = P.outFileNamePrefix
     if os.path.dirname(prefix):
         os.makedirs(os.path.dirname(prefix), exist_ok=True)
@@ -339,6 +330,30 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
     stats.open_progress(prefix + "Log.progress.out")
     log_out.line("started mapping")
 
+    if use_device is None:
+        use_device = bool(P.tpuUseDevice)
+    sharded = bool(getattr(P, "tpuShardedIndex", 0))
+    if sharded and gi.sa_sparse_d > 1 and use_device:
+        # as in star_tpu (run.py:320-323), whose sharded seed round has no
+        # phase-offset probes: a sparse suffix array maps on the host
+        use_device = False
+        log_out.line("--tpuShardedIndex: a sparse suffix array "
+                     "(--genomeSAsparseD > 1) maps on the host, not on the "
+                     "sharded index")
+    if P.longReads and use_device:
+        # STARlong: reads up to 500 kb would force huge static probe shapes;
+        # the host seed loop + seed-chain DP handles them (align/stitch.py
+        # stitch_window_seeds), as in the JAX package
+        use_device = False
+        log_out.line("--tpuLongReads: long reads map on the host (seed-chain "
+                     "DP, align/stitch.py stitch_window_seeds), not on the "
+                     "device")
+    if not use_device:
+        mesh = None             # the host searches no index shards
+    elif sharded and mesh is None:
+        from .parallel.mesh import make_mesh
+        mesh = make_mesh(None if device is None else [device])
+
     bam = None
     if P.outBAMunsorted or P.outBAMcoord:
         from .io.bam import BamCollector
@@ -351,7 +366,11 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
         from .quant.transcriptome import Transcriptome, GeneCounts
         trm = Transcriptome.load(getattr(P, "trInfoDir", P.genomeDir))
         if P.quantModeGeneCounts:
-            gene_counts = GeneCounts(trm)
+            if mesh is not None:
+                from .quant.transcriptome import ShardedGeneCounts
+                gene_counts = ShardedGeneCounts(trm, mesh)
+            else:
+                gene_counts = GeneCounts(trm)
     if P.quantModeTrSAM:
         from .quant.trsam import TrGenomeShim, quant_transcriptome
         from .io.bam import BgzfWriter, bam_header_bytes, encode_mapped
@@ -363,16 +382,6 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
         tr_rng = MT19937(P.runRNGseed * 1)
         tr_sam = (quant_transcriptome, encode_mapped, tr_shim, tr_bam, tr_rng)
 
-    if use_device is None:
-        use_device = bool(P.tpuUseDevice)
-    if P.longReads and use_device:
-        # STARlong: reads up to 500 kb would force huge static probe shapes;
-        # the host seed loop + seed-chain DP handles them (align/stitch.py
-        # stitch_window_seeds), as in the JAX package
-        use_device = False
-        log_out.line("--tpuLongReads: long reads map on the host (seed-chain "
-                     "DP, align/stitch.py stitch_window_seeds), not on the "
-                     "device")
 
     solo = None
     cb_tag_bc = None
@@ -542,7 +551,7 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
                     unmapped_streams[im].write(
                         f"@{res.name} {im}:N: {suffix}\n{res.seqs[im]}\n+\n{res.quals[im]}\n")
 
-    for res in _align_all(P, gi, stats, use_device, device):
+    for res in _align_all(P, gi, stats, use_device, device, mesh):
         if by_sjout:
             # recordSJ1 gate: the reference returns before recording when
             # unmapType>0 (ReadAlign_outputAlignments.cpp:94-96) — over-limit
@@ -724,7 +733,7 @@ def _has_novel_junction(res) -> bool:
 
 
 def _align_all(P: Parameters, gi: GenomeIndex, stats: RunStats,
-               use_device: bool, device=None):
+               use_device: bool, device=None, mesh=None):
     if P.soloTypeYes and P.soloType[0] != "SmartSeq":
         # the barcode read is the last file; only the cDNA read is aligned
         # (SmartSeq has no barcode read: its wells come from the file index,
@@ -737,7 +746,7 @@ def _align_all(P: Parameters, gi: GenomeIndex, stats: RunStats,
             # (align_stream yields in input order), so memory stays O(batch)
             from collections import deque
             from .ops.pipeline import DeviceAligner
-            aligner = DeviceAligner(gi, P, device=device)
+            aligner = DeviceAligner(gi, P, device=device, mesh=mesh)
             pending = deque()
 
             def plain():
@@ -771,7 +780,7 @@ def _align_all(P: Parameters, gi: GenomeIndex, stats: RunStats,
                                     sam_mates=P.samInputNmates)
     if use_device:
         from .ops.pipeline import DeviceAligner
-        aligner = DeviceAligner(gi, P, device=device)
+        aligner = DeviceAligner(gi, P, device=device, mesh=mesh)
         file_idx = []
 
         def plain():

@@ -5,8 +5,10 @@ against the host oracle, the device grow on the card against the numpy
 grow, the device finalize, select and pack on the card against the same
 engine on CPU tensors, and two-pass mapping, GeneCounts and BAM output on the
 card against the goldens, chimeric detection and the mate-overlap merge on
-the card against the goldens, and STARsolo counting with CB/UB BAM tags on
-the card against the goldens.  They skip where no card is present.  This file
+the card against the goldens, STARsolo counting with CB/UB BAM tags on
+the card against the goldens, and the sharded index (four shards on the
+card) against the host oracle and the goldens, with the merges of a one-rank
+NCCL group.  They skip where no card is present.  This file
 imports neither jax nor star_tpu, so on a machine with a card and no jax it
 runs as
 
@@ -394,3 +396,64 @@ def test_solo_on_card_matches_goldens(cuda, tmp_path, monkeypatch, case, gold,
                if k == "fetch_launches") > 0
     assert sum(v for (w, k), v in be.LEVEL_STATS.items() if k == "device") > 0
     assert solo_diff(prefix, os.path.join(TESTS, "golden", gold), files) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big", [False, True], ids=["t2", "big"])
+def test_sharded_mmp_on_card_matches_host(cuda, big):
+    """the suffix array split over four shards on the card, in the doubled
+    text layout and in the int64 forward-G-only one"""
+    from star_tpu_torch.align.seed import mmp_search
+    from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.parallel import mesh as pm
+    gi = GenomeIndex.load(os.path.join(GOLD, "genome_idx"))
+    rng = np.random.default_rng(1)
+    n, ql = 512, 128
+    qs = np.full((n, ql), -1, np.int8)
+    qlen = rng.integers(1, 100, size=n)
+    for b in range(n):
+        if b % 2:
+            qs[b, :qlen[b]] = rng.integers(0, 4, size=qlen[b])
+        else:
+            p0 = int(rng.integers(0, 2 * gi.n_genome - 200))
+            q = gi.t2[p0:p0 + qlen[b]]
+            qs[b, :qlen[b]] = np.where(q > 3, 0, q)
+    si = pm.ShardedIndex.build(gi, pm.make_mesh([cuda] * 4, dp=1, ix=4),
+                               ql=ql, big=big)
+    n0 = fetch.LAUNCHES
+    got = [t.cpu() for t in pm.make_sharded_mmp(si)(
+        torch.from_numpy(qs).to(cuda), torch.from_numpy(qlen).to(cuda))]
+    assert fetch.LAUNCHES > n0 and all(t.dtype == torch.int64 for t in got)
+    host = np.array([mmp_search(gi, qs[b, :qlen[b]]) for b in range(n)])
+    assert np.array_equal(np.stack([t.numpy() for t in got], 1), host)
+
+
+@pytest.mark.cuda
+def test_sharded_golden_on_card(cuda, tmp_path):
+    """--tpuShardedIndex 1 --quantMode GeneCounts at four shards (2 x 2) on
+    the card: se_gtf's SAM and SJ.out.tab, se_quant's ReadsPerGene.out.tab"""
+    from chip_smoke import SHARDED_GOLDEN_FLAGS
+    from star_tpu_torch.parallel.mesh import make_mesh
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    prefix = str(tmp_path) + "/"
+    P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx_gtf"),
+                    "--readFilesIn", os.path.join(ROOT, "tests", "data",
+                                                  "small", "reads_se.fastq"),
+                    "--outFileNamePrefix", prefix, *SHARDED_GOLDEN_FLAGS])
+    n0 = fetch.LAUNCHES
+    align_reads(P, device=cuda, mesh=make_mesh([cuda] * 4))
+    assert fetch.LAUNCHES > n0
+    for f, gold in (("Aligned.out.sam", "se_gtf"), ("SJ.out.tab", "se_gtf"),
+                    ("ReadsPerGene.out.tab", "se_quant")):
+        assert same_output(prefix, os.path.join(GOLD, gold) + "/", f), f
+
+
+@pytest.mark.cuda
+def test_single_rank_nccl_merges(cuda):
+    """psum_merge and merge_keyed_counts over a one-rank NCCL group on CUDA
+    tensors, keys and counts past 2^32"""
+    import torch.distributed as dist
+    from chip_smoke import nccl_merges
+    nccl_merges(torch, np)
+    assert not dist.is_initialized()

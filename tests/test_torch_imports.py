@@ -53,21 +53,6 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert DeviceAligner(gi, P, device="cpu").device.type == "cpu"
 
 
-def test_options_outside_the_slice_are_refused(tmp_path):
-    from star_tpu_torch.params import Parameters
-    from star_tpu_torch.run import align_reads
-    P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
-                    "--readFilesIn", "none.fastq", "--tpuShardedIndex", "1",
-                    "--chimSegmentMin", "12", "--quantMode", "GeneCounts",
-                    "--outFileNamePrefix", str(tmp_path) + "/"])
-    with pytest.raises(SystemExit, match="not yet ported.*tpuShardedIndex$"):
-        align_reads(P, device="cpu")
-
-
-REFUSED = [
-    (["--tpuShardedIndex", "1"], "--tpuShardedIndex"),
-]
-
 # options of the slices ported so far that an earlier slice refused
 PORTED = [
     ["--chimSegmentMin", "12"],
@@ -78,34 +63,25 @@ PORTED = [
     ["--peOverlapNbasesMin", "5"],
     ["--tpuLongReads", "1"],
     ["--soloType", "CB_UMI_Simple"],
+    ["--tpuShardedIndex", "1"],
 ]
-
-
-@pytest.mark.parametrize("flags,name", REFUSED, ids=[n for _, n in REFUSED])
-def test_not_ported_names_each_refused_option(tmp_path, flags, name):
-    """each option whose slice has not come yet stops the run, through the
-    command line, with a message that names it, before any output"""
-    from star_tpu_torch.run import main
-    out = str(tmp_path / "o") + "/"
-    with pytest.raises(SystemExit) as e:
-        main(["--genomeDir", out if "genomeGenerate" in flags
-              else os.path.join(GOLD, "genome_idx"),
-              "--readFilesIn", os.path.join(DATA, "reads_se.fastq"),
-              "--outFileNamePrefix", out, *flags])
-    msg = str(e.value)
-    assert msg.startswith("EXITING: option(s) not yet ported") and name in msg
-    assert not os.path.exists(out)
 
 
 @pytest.mark.parametrize("flags", PORTED, ids=[f[0] for f in PORTED[:2]]
                          + ["--waspOutputMode"] + [f[0] for f in PORTED[3:]])
-def test_ported_options_pass_the_gate(flags):
-    """the options of this slice reach the mapping: nothing refuses them"""
+def test_ported_options_pass_the_gate(flags, monkeypatch):
+    """every option that an earlier slice refused reaches the mapping:
+    nothing refuses it"""
+    from star_tpu_torch import run
     from star_tpu_torch.params import Parameters
-    from star_tpu_torch.run import _not_ported
+    reached = []
+    monkeypatch.setattr(run, "_run_mapping",
+                        lambda P, *a: reached.append(P.outFileNamePrefix))
     P = Parameters(["--genomeDir", os.path.join(GOLD, "genome_idx"),
-                    "--readFilesIn", "none.fastq", *flags])
-    assert _not_ported(P) == []
+                    "--readFilesIn", "none.fastq",
+                    "--outFileNamePrefix", "gate/", *flags])
+    run.align_reads(P, device="cpu")
+    assert reached == ["gate/"]
 
 
 def test_port_modules_import_without_jax_or_star_tpu():
@@ -126,7 +102,9 @@ def test_port_modules_import_without_jax_or_star_tpu():
             "star_tpu_torch.solo.collapse", "star_tpu_torch.solo.emptydrops",
             "star_tpu_torch.solo.feature", "star_tpu_torch.solo.sgt",
             "star_tpu_torch.solo.solo",
-            "star_tpu_torch.utils.stdhash"} <= set(mods)
+            "star_tpu_torch.utils.stdhash",
+            "star_tpu_torch.parallel.mesh",
+            "star_tpu_torch.parallel.dist"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
