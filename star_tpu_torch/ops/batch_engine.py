@@ -56,7 +56,8 @@ def _use_device_stitch(gi, s_max: int, n_records: int) -> bool:
     return n_records >= DEVICE_GROW_MIN_RECORDS[s_max]
 
 
-# fallback-cause counters (diagnostics; STAR_TPU_TIMING reports them)
+# fallback-cause counters (diagnostics, always on; read by the tests and
+# chip_smoke.py)
 import collections as _collections
 FB_STATS = _collections.Counter()
 RPT = 256       # repeat-shift scan bound (MAX_SJ_REPEAT_SEARCH + 1)

@@ -30,34 +30,87 @@ from .sa_search import DeviceIndex, make_mmp_fn
 
 MAXP = 64  # probes per chain cap (matches the round-1 64-round cap)
 
-# per-phase wall-clock accumulators, enabled with STAR_TPU_TIMING=1.
-# Keys: prepare, seed_loop, replay, stitch_batch, finish; per escalation
-# level stitch_level_W<w> with its parts windows_W<w>, the stitch engine
+# Host spans, on with STAR_TPU_TIMING=1 or pipeline.TIMING = True.  Each
+# _tick records (key, parent index, batch index, t0_ns, t1_ns) in SPANS on
+# time.time_ns(), torch.profiler's clock, and adds its seconds to
+# TIMERS[key], which callers clear.  Keys: job_open (run.py: outputs,
+# Transcriptome.load, Solo(...)), read_input (filling a batch from the
+# reader), prepare, batch_arrays (the read matrix and chain descriptors; the
+# stitch's fwd / rc / nmm_max arrays), index_upload (a device index built on
+# a cache miss), seed_loop, replay, stitch_batch, finish with host_path
+# inside it (the per-read host finish_read); per escalation level
+# stitch_level_W<w> with its parts windows_W<w>, the stitch engine
 # (grow_dev_W<w> on the device: grow, finalize and select; else
 # grow_host_W<w> and the numpy finalize_W<w>) and assemble_W<w>; the device
 # engine's parts dev_upload_W<w>, dev_grow_W<w>, dev_finalize_W<w>,
 # dev_select_W<w>, dev_download_W<w> (with the pack) and dev_order_W<w>
-# (the host's DFS ordering of the downloaded chains).
+# (the host's DFS ordering of the downloaded chains); run.py's per-read
+# emit, solo_count, quant, bam_encode and its end of job (see run.py);
+# solo_process with solo_collapse, solo_raw_out, solo_filter and
+# solo_stats inside it (solo/solo.py Solo.process).  A job (_job, around
+# run.align_reads) adds the seconds no top-level span covers to
+# TIMERS["untimed"].  No span stays open across a yield, and code outside
+# this module and run.py looks _tick up here at call time, so that a caller
+# may stand a subclass in for it.
 # STAR_TPU_DUMP_STITCH=<dir> pickles each batch's stitch inputs there, with
 # the read matrix and chain descriptors its seed loop ran on.
 import collections as _collections
+import itertools as _itertools
 import os as _os
 import time as _time
 TIMING = bool(_os.environ.get("STAR_TPU_TIMING"))
 TIMERS = _collections.defaultdict(float)
+SPANS = []      # (key, parent index or -1, batch index, t0_ns, t1_ns)
+_OPEN = []      # indices into SPANS of the open spans, innermost last
+BATCH = -1      # the job's batch last begun (DeviceAligner._align_batch)
 
 
 class _tick:
+    """one span of the host's work under `key` (see above)"""
+    _i = None           # this span's slot in SPANS while it is open
+
     def __init__(self, key):
         self.key = key
 
     def __enter__(self):
         if TIMING:
-            self.t0 = _time.time()
+            self._i = len(SPANS)
+            SPANS.append((self.key, _OPEN[-1] if _OPEN else -1, BATCH,
+                          _time.time_ns(), None))
+            _OPEN.append(self._i)
 
     def __exit__(self, *a):
+        i = self._i
+        if i is not None:
+            t1 = _time.time_ns()
+            key, parent, batch, t0, _ = SPANS[i]
+            SPANS[i] = (key, parent, batch, t0, t1)
+            del _OPEN[_OPEN.index(i):]
+            TIMERS[key] += (t1 - t0) / 1e9
+
+
+class _job:
+    """the scope of one mapping job (run.align_reads): clears SPANS when it
+    opens and adds to TIMERS["untimed"] the job's seconds outside every
+    top-level span when it closes.  Not a _tick, so a recorder of _tick
+    spans never sees a span that covers the whole job."""
+    _t0 = None
+
+    def __enter__(self):
+        global BATCH
         if TIMING:
-            TIMERS[self.key] += _time.time() - self.t0
+            SPANS.clear()
+            _OPEN.clear()
+            BATCH = -1
+            self._t0 = _time.time_ns()
+
+    def __exit__(self, *a):
+        if self._t0 is not None:
+            t1 = _time.time_ns()
+            _OPEN.clear()
+            top = sum(s[4] - s[3] for s in SPANS
+                      if s[1] == -1 and s[4] is not None)
+            TIMERS["untimed"] += max(t1 - self._t0 - top, 0) / 1e9
 
 
 def timing_report() -> str:
@@ -151,33 +204,36 @@ class DeviceAligner:
                 key = ("sharded", ql, m.dp, m.ix,
                        tuple((s.row, s.col, str(s.device)) for s in m.shards))
                 if key not in cache:
-                    si = ShardedIndex.build(self.gi, m, ql=ql)
-                    cache[key] = (si, make_sharded_mmp(si))
+                    with _tick("index_upload"):
+                        si = ShardedIndex.build(self.gi, m, ql=ql)
+                        cache[key] = (si, make_sharded_mmp(si))
                 self.mmp = cache[key][1]
             else:
                 key = (ql, str(self.device))
                 if key not in cache:
-                    cache[key] = DeviceIndex.build(self.gi, ql=ql,
-                                                   device=self.device)
+                    with _tick("index_upload"):
+                        cache[key] = DeviceIndex.build(self.gi, ql=ql,
+                                                       device=self.device)
                 self.mmp = make_mmp_fn(cache[key])
             self._ql = ql
 
     # -------------------------------------------------------------- batching
     def align_stream(self, reader, stats) -> Iterator[ReadResult]:
-        batch = []
-        n = 0
-        for item in reader:
-            if self.P.readMapNumber >= 0 and n >= self.P.readMapNumber:
+        reader = iter(reader)
+        left = self.P.readMapNumber         # -1: every read
+        while left != 0:
+            n = self.batch_size if left < 0 else min(self.batch_size, left)
+            with _tick("read_input"):
+                batch = list(_itertools.islice(reader, n))
+            if not batch:
                 break
-            batch.append(item)
-            n += 1
-            if len(batch) >= self.batch_size:
-                yield from self._align_batch(batch, stats)
-                batch = []
-        if batch:
+            if left > 0:
+                left -= len(batch)
             yield from self._align_batch(batch, stats)
 
     def _align_batch(self, batch, stats) -> Iterator[ReadResult]:
+        global BATCH
+        BATCH += 1
         P = self.P
         with _tick("prepare"):
             prepped = []
@@ -189,13 +245,13 @@ class DeviceAligner:
         lmax = max(r.lread for r, _ in prepped)
         self._ensure_kernel(lmax)
 
-        # read matrix [R, lmax] padded with -1
-        R = len(prepped)
-        read_mat = np.full((R, lmax), -1, dtype=np.int8)
-        for i, (res, reads) in enumerate(prepped):
-            read_mat[i, :res.lread] = reads[0]
-
-        chains, per_read_pieces = chain_descriptors(P, prepped)
+        with _tick("batch_arrays"):
+            # read matrix [R, lmax] padded with -1
+            R = len(prepped)
+            read_mat = np.full((R, lmax), -1, dtype=np.int8)
+            for i, (res, reads) in enumerate(prepped):
+                read_mat[i, :res.lread] = reads[0]
+            chains, per_read_pieces = chain_descriptors(P, prepped)
         c_read, c_pstart, c_plen, c_dir, c_istl, c_ifrag, c_piece = chains
 
         probes = None
@@ -217,19 +273,21 @@ class DeviceAligner:
         fast_fin = False
         if be.fast_path_config_ok(self.gi, P) and len(seed_flat.read):
             fast_fin = be.fast_finish_config_ok(P)
-            lread = np.asarray([r.lread for r, _ in prepped], np.int64)
-            read_len2 = np.asarray([r.read_length[:2] for r, _ in prepped],
-                                   np.int64)
-            nmm_max = np.minimum(
-                P.outFilterMismatchNmax,
-                (P.outFilterMismatchNoverReadLmax
-                 * (read_len2[:, 0] + read_len2[:, 1])).astype(np.int64))
-            fwd = read_mat.astype(np.uint8)      # -1 pad -> 255 (PAD_BASE)
-            k = np.arange(lmax)
-            src = np.clip(lread[:, None] - 1 - k[None, :], 0, lmax - 1)
-            rcv = np.take_along_axis(read_mat, src, axis=1)
-            rc = np.where(k[None, :] < lread[:, None],
-                          np.where(rcv < 4, 3 - rcv, rcv), -1).astype(np.uint8)
+            with _tick("batch_arrays"):
+                lread = np.asarray([r.lread for r, _ in prepped], np.int64)
+                read_len2 = np.asarray([r.read_length[:2]
+                                        for r, _ in prepped], np.int64)
+                nmm_max = np.minimum(
+                    P.outFilterMismatchNmax,
+                    (P.outFilterMismatchNoverReadLmax
+                     * (read_len2[:, 0] + read_len2[:, 1])).astype(np.int64))
+                fwd = read_mat.astype(np.uint8)  # -1 pad -> 255 (PAD_BASE)
+                k = np.arange(lmax)
+                src = np.clip(lread[:, None] - 1 - k[None, :], 0, lmax - 1)
+                rcv = np.take_along_axis(read_mat, src, axis=1)
+                rc = np.where(k[None, :] < lread[:, None],
+                              np.where(rcv < 4, 3 - rcv, rcv),
+                              -1).astype(np.uint8)
             dump_dir = _os.environ.get("STAR_TPU_DUMP_STITCH")
             if dump_dir:
                 _os.makedirs(dump_dir, exist_ok=True)
@@ -261,8 +319,9 @@ class DeviceAligner:
                     out = _fast_finish(self.host, res, seeds, pre,
                                        P, self.gi)
                 else:
-                    out = self.host.finish_read(res, reads, seeds,
-                                                precomputed=pre)
+                    with _tick("host_path"):
+                        out = self.host.finish_read(res, reads, seeds,
+                                                    precomputed=pre)
                 stats.add_read(out)
                 outs.append(out)
         yield from outs

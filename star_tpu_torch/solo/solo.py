@@ -687,6 +687,12 @@ class Solo:
     # ---------------------------------------------------------------- output
     def process(self, out_dir: str, run_stats: Dict[str, int],
                 sj_all: Optional[Tuple[np.ndarray, np.ndarray]] = None):
+        """the Solo.out files of every feature.  Under pipeline.TIMING its
+        parts are spans inside run.py's solo_process: solo_collapse (the
+        UMI collapse), solo_raw_out (Features.stats and the raw matrices),
+        solo_filter (cell filtering and the filtered matrices) and
+        solo_stats (Summary.csv, UMIperCellSorted, CellReads.stats)"""
+        from ..ops.pipeline import _tick
         P = self.P
         # the swapped-halves shift reads the live umiL (umiSwapHalves,
         # ParametersSolo.cpp:497-498) — for CB_UMI_Complex that is the length
@@ -713,22 +719,26 @@ class Solo:
                 # outputs (reference SoloFeature_processRecords.cpp:47-49)
                 proc.quant_transcript(prefix, P)
                 continue
-            if ft == FT_VELOCYTO:
-                proc.count_velocyto(self.procs[FT_GENE])
-            elif self.smart_seq:
-                proc.count_smart_seq()
-            else:
-                proc.count_cb_gene_umi()
-            with open(prefix + "Features.stats", "w") as f:
-                f.write("".join(f"{k:>50}{v:>15}\n"
-                                for k, v in proc.rf.stats.items()))
-            proc.output_results(False, prefix + "raw/", P)
-            proc.cell_filtering(P, prefix + "filtered/",
-                                self.procs.get(FT_GENE))
-            proc.stats_output(prefix, P, run_stats, bar_inval,
-                              self.q30_bc, self.q30_rna)
-            if proc.rf.read_stats_yes:
-                self._cell_reads_stats(proc, prefix)
+            with _tick("solo_collapse"):
+                if ft == FT_VELOCYTO:
+                    proc.count_velocyto(self.procs[FT_GENE])
+                elif self.smart_seq:
+                    proc.count_smart_seq()
+                else:
+                    proc.count_cb_gene_umi()
+            with _tick("solo_raw_out"):
+                with open(prefix + "Features.stats", "w") as f:
+                    f.write("".join(f"{k:>50}{v:>15}\n"
+                                    for k, v in proc.rf.stats.items()))
+                proc.output_results(False, prefix + "raw/", P)
+            with _tick("solo_filter"):
+                proc.cell_filtering(P, prefix + "filtered/",
+                                    self.procs.get(FT_GENE))
+            with _tick("solo_stats"):
+                proc.stats_output(prefix, P, run_stats, bar_inval,
+                                  self.q30_bc, self.q30_rna)
+                if proc.rf.read_stats_yes:
+                    self._cell_reads_stats(proc, prefix)
 
     def _cell_reads_stats(self, proc: SoloFeatureProc, prefix: str):
         """CellReads.stats (reference SoloFeature_statsOutput.cpp:88-121);
