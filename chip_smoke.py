@@ -8,9 +8,9 @@ in order; any failure ends the run with a non-zero exit and no result line:
 
   1. build   compile every CUDA source of ops/csrc/ (fetch_rows.cu, whose
              library holds the window kernel behind its three launchers,
-             fetch_window, fetch_rows and tile_fetch; one nvcc per source,
-             started together) into
-             star_tpu_torch/_build/;
+             fetch_window, fetch_rows and tile_fetch, and emptydrops.cu,
+             EmptyDrops_CR's Monte-Carlo null; one nvcc per source, started
+             together) into star_tpu_torch/_build/;
   2. kernel  each kernel against its plain PyTorch version on the card
              (exact equality), timed beside its plain version, one library
              call and its bytes bound: fetch_window at every width of the
@@ -107,7 +107,12 @@ in order; any failure ends the run with a non-zero exit and no result line:
              fetch_window launches, peak device memory, cells called, median
              UMIs per cell and reads with valid barcodes (Summary.csv); a
              level must run on the card, the grow launch fetch_window, Gene
-             and GeneFull count, EmptyDrops_CR simulate; the first 4,096
+             and GeneFull count, EmptyDrops_CR's Monte-Carlo null launch
+             its kernel once a feature; each of those launches again on its
+             own inputs, held against the plain version (on the CPU, as a
+             host job runs it) and timed beside it, beside one simulation
+             alone (the serial chain) and the plain version on the card;
+             the first 4,096
              reads prepared with the CellRanger4 clip of a whole batch (the
              device path's) and read by read (the host oracle's) must give
              the same clips and reads (both timed); the first 4,096 reads
@@ -2061,6 +2066,40 @@ def mtx_entries(path):
     return int(rows[0].split()[2])
 
 
+def mc_kernel(torch, mc_null, inputs):
+    """each captured call of mc_null.null_histogram (the 10x run's Gene and
+    GeneFull) launched again: the kernel against the plain version on the
+    CPU (exact), the kernel's device time beside one simulation alone (the
+    serial chain that bounds it), the plain version's host time on the CPU
+    and its device time on the card.  Returns the kernel table's entry"""
+    rows = []
+    for a in inputs:
+        *tens, sim_n = a
+        cpu = [t.cpu() for t in tens]
+        got = mc_null.null_histogram(*tens, sim_n)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = mc_null.null_histogram(*cpu, sim_n)
+        plain_cpu_s = time.time() - t0
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError("mc_null kernel differs from its plain "
+                                 f"version at {len(cpu[0])} genes")
+        ms = cuda_ms(lambda: mc_null.null_histogram(*tens, sim_n))
+        chain_ms = cuda_ms(lambda: mc_null.null_histogram(*tens, 1))
+        plain_ms = cuda_ms(lambda: mc_null._null_histogram_torch(*tens, sim_n),
+                           iters=2, warm=1)
+        shape = {"genes": tens[0].numel(), "max_count": tens[2].numel() - 1,
+                 "groups": tens[3].numel(), "candidates": tens[5].numel(),
+                 "sim_n": sim_n}
+        log(f"kernel mc_null: {shape}: identical to the plain version; "
+            f"{ms:.4f} ms (one simulation alone {chain_ms:.4f} ms; plain on "
+            f"the card {plain_ms:.2f} ms, on the CPU {plain_cpu_s * 1e3:.2f} "
+            f"ms)")
+        rows.append({**shape, "ms": ms, "chain_ms": chain_ms,
+                     "plain_ms": plain_ms, "plain_cpu_ms": plain_cpu_s * 1e3})
+    return rows
+
+
 def solo_goldens(fetch):
     """phase 7 (a): every STARsolo golden on the card with the device
     stitch engine forced on every level, then --runMode soloCellFiltering
@@ -2069,6 +2108,7 @@ def solo_goldens(fetch):
     from star_tpu_torch.ops import batch_engine as be
     from star_tpu_torch.params import Parameters
     from star_tpu_torch.run import align_reads
+    from star_tpu_torch.solo import mc_null
     ed = os.path.join(WORK, "solo_ed_idx")
     shutil.rmtree(ed, ignore_errors=True)
     solo_ed_index(ed)
@@ -2082,11 +2122,16 @@ def solo_goldens(fetch):
                             "--outFileNamePrefix", out, *flags])
             be.LEVEL_STATS.clear()
             n0 = fetch.LAUNCHES
+            mc0 = mc_null.LAUNCHES
             t0 = time.time()
             align_reads(P, device=DEVICE)
             bad = solo_diff(out, os.path.join(TESTS, "golden", gold), files)
             if bad:
                 raise AssertionError(f"solo golden {case}: {bad} differ")
+            mc = mc_null.LAUNCHES - mc0
+            if mc != (1 if "EmptyDrops_CR" in flags else 0):
+                raise AssertionError(f"solo golden {case}: {mc} launches of "
+                                     "the EmptyDrops_CR kernel")
             n = fetch.LAUNCHES - n0
             on_card = sum(v for (w, k), v in be.LEVEL_STATS.items()
                           if k == "device")
@@ -2097,7 +2142,8 @@ def solo_goldens(fetch):
             log(f"solo: golden {case}: "
                 f"{', '.join(f if isinstance(f, str) else f[0] for f in files)} "
                 f"identical; {n} fetch_window launches, {on_card} levels on "
-                f"the device stitch engine, {time.time() - t0:.2f} s")
+                f"the device stitch engine, {mc} EmptyDrops_CR kernel "
+                f"launches, {time.time() - t0:.2f} s")
     finally:
         be.DEVICE_GROW_MIN_RECORDS = gate
     out = os.path.join(WORK, "solo_cellfilt") + "/"
@@ -2126,7 +2172,7 @@ def solo_scale(torch, np, fetch, tile_fetch, data):
     from star_tpu_torch.ops import pipeline
     from star_tpu_torch.params import Parameters
     from star_tpu_torch.run import align_reads
-    from star_tpu_torch.solo import emptydrops
+    from star_tpu_torch.solo import emptydrops, mc_null
     idx = os.path.join(WORK, "annot") + "/_STARgenome"
     t0 = time.time()
     cdna, bc, wl = (os.path.join(WORK, f) for f in
@@ -2148,10 +2194,11 @@ def solo_scale(torch, np, fetch, tile_fetch, data):
                                      "--tpuBatchSize",
                                      str(N_SOLO_READS // 2),
                                      *SOLO_CR4_FLAGS, *x])
-    ed = {"sims": 0, "s": 0.0, "called": 0}
+    ed = {"sims": 0, "s": 0.0, "called": 0, "inputs": []}
 
-    def sim_rng(real, *a):
-        ed["sims"] += 1
+    def null(real, *a):
+        ed["sims"] += a[6]
+        ed["inputs"].append(a)
         return real(*a)
 
     def ed_proc(real, *a, **k):
@@ -2168,9 +2215,10 @@ def solo_scale(torch, np, fetch, tile_fetch, data):
     fetch.LAUNCHES = 0                       # counts of this slice's main path
     fetch.ROWS_LAUNCHES = 0
     tile_fetch.LAUNCHES = 0
+    mc0 = mc_null.LAUNCHES
     t0 = time.time()
     try:
-        with Spy((emptydrops, "MT19937", sim_rng),
+        with Spy((mc_null, "null_histogram", null),
                  (emptydrops, "empty_drops_cr_proc", ed_proc)):
             stats = align_reads(argv("scale"), gi=gi, device=DEVICE)
         torch.cuda.synchronize()
@@ -2179,7 +2227,8 @@ def solo_scale(torch, np, fetch, tile_fetch, data):
     wall = time.time() - t0
     launches = {"fetch_window": fetch.LAUNCHES,
                 "fetch_rows": fetch.ROWS_LAUNCHES,
-                "tile_fetch": tile_fetch.LAUNCHES}
+                "tile_fetch": tile_fetch.LAUNCHES,
+                "mc_null": mc_null.LAUNCHES - mc0}
     peak = torch.cuda.max_memory_allocated()
     t = pipeline.TIMERS
     sl = stitch_launches(ds)
@@ -2195,7 +2244,8 @@ def solo_scale(torch, np, fetch, tile_fetch, data):
         ("prepare", "seed_loop", "replay", "stitch_batch",
          *(f"stitch_level_W{w}" for w in lv), "finish", "solo_count",
          "bam_encode", "solo_process", "bam_finish") if k in t)
-        + f"; of solo_process EmptyDrops_CR {ed['s']:.3f} s")
+        + f"; of solo_process EmptyDrops_CR {ed['s']:.3f} s, its "
+        f"Monte-Carlo null (solo_mc) {t.get('solo_mc', 0.0):.3f} s")
     grow_report(ds, be, pipeline, "solo")
     check_card_levels(ds, be, "solo")
     sums = {ft: summary(outs["scale"] + f"Solo.out/{ft}/Summary.csv")
@@ -2208,16 +2258,20 @@ def solo_scale(torch, np, fetch, tile_fetch, data):
             f"valid barcodes {sm['Reads With Valid Barcodes']}, "
             f"sequencing saturation {sm['Sequencing Saturation']}, "
             f"{nnz[ft]} raw matrix entries")
-    log(f"solo: EmptyDrops_CR: {ed['sims']} simulations, {ed['called']} "
-        f"cells called beyond the simple filter, {ed['s']:.2f} s")
+    log(f"solo: EmptyDrops_CR: {ed['sims']} simulations in "
+        f"{launches['mc_null']} kernel launches, {ed['called']} cells called "
+        f"beyond the simple filter, {ed['s']:.2f} s")
     if stats.read_n != N_SOLO_READS or lv.get(8, (0, 0))[0] != 2:
         raise AssertionError(f"solo: {stats.read_n} reads, levels {lv}")
     if sl["fetch"] <= 0 or not any(dev for _, dev in lv.values()):
         raise AssertionError(f"solo: no level on the card ({lv}) or no "
                              f"fetch_window in the grow ({sl})")
-    if min(nnz.values()) <= 0 or ed["sims"] < SOLO_SIM_N:
+    if min(nnz.values()) <= 0 or ed["sims"] != 2 * SOLO_SIM_N \
+            or launches["mc_null"] != 2:
         raise AssertionError(f"solo: raw matrix entries {nnz}, "
-                             f"{ed['sims']} EmptyDrops simulations")
+                             f"{ed['sims']} EmptyDrops simulations in "
+                             f"{launches['mc_null']} kernel launches")
+    launches["mc_kernel"] = mc_kernel(torch, mc_null, ed["inputs"])
 
     # ---- the first reads on the card (engine forced) and with numpy
     sub = ["--readMapNumber", str(N_SOLO_ORACLE)]
@@ -2565,7 +2619,7 @@ def main():
     oracle = None
     try:
         t0 = time.time()
-        sources = ["fetch_rows"]
+        sources = ["fetch_rows", "emptydrops"]
         _build.build_all(sources)
         log(f"build: {', '.join(k + '.cu' for k in sources)} in "
             f"{time.time() - t0:.1f} s")
@@ -2626,6 +2680,11 @@ def main():
             "bound_by": "bytes", "phases": {**ph,
                                             "sharded_seed": sharded_seed},
             "widths_262144_starts": widths})
+        kern.append({
+            "name": "mc_null", "route": "cuda",
+            "source": "star_tpu_torch/ops/csrc/emptydrops.cu",
+            "replaces": None, "launches": solo["mc_null"],
+            "bound_by": "serial chain", "calls": solo["mc_kernel"]})
     finally:
         for p in (data_proc, oracle):
             if p is not None and p.poll() is None:

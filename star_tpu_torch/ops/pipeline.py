@@ -47,7 +47,8 @@ MAXP = 64  # probes per chain cap (matches the round-1 64-round cap)
 # (the host's DFS ordering of the downloaded chains); run.py's per-read
 # emit, solo_count, quant, bam_encode and its end of job (see run.py);
 # solo_process with solo_collapse, solo_raw_out, solo_filter and
-# solo_stats inside it (solo/solo.py Solo.process).  A job (_job, around
+# solo_stats inside it (solo/solo.py Solo.process), and solo_mc inside
+# solo_filter (EmptyDrops_CR's Monte-Carlo null, solo/emptydrops.py).  A job (_job, around
 # run.align_reads) adds the seconds no top-level span covers to
 # TIMERS["untimed"].  No span stays open across a yield, and code outside
 # this module and run.py looks _tick up here at call time, so that a caller

@@ -418,9 +418,12 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
     if P.soloTypeYes and P.soloType[0] in ("CB_UMI_Simple", "CB_UMI_Complex",
                                            "SmartSeq"):
         from .quant.transcriptome import Transcriptome
+        from .ops.fetch import resolve_device
         from .solo.solo import Solo
         trm_solo = Transcriptome.load(getattr(P, "trInfoDir", P.genomeDir))
-        solo = Solo(gi, P, trm_solo)
+        # the job's device: the card in a device job, else the host
+        solo = Solo(gi, P, trm_solo,
+                    resolve_device(device) if use_device else "cpu")
         P._solo_trm = trm_solo
 
     chim_stream = None

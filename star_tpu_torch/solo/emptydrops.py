@@ -5,16 +5,21 @@ from the "true empty" index window via Simple Good-Turing smoothing, sparse
 multinomial log-PDF of candidate cells, Monte-Carlo null simulations driven by
 std::mt19937 + std::discrete_distribution (both replicated bit-exactly), BH
 adjustment, FDR cut.  Floating-point accumulation order mirrors the reference
-so p-values match exactly.
+so p-values match exactly.  The Monte-Carlo null and each candidate's count
+of lower simulations run on the job's device (solo/mc_null.py: a CUDA
+kernel on the card, its plain PyTorch version on the CPU); the rest stays
+on the host.
 """
 from __future__ import annotations
 
 import math
-from bisect import bisect_left
 from typing import Dict, List
 
+import numpy as np
+import torch
+
+from . import mc_null
 from .sgt import SGT
-from ..utils.rng import MT19937
 
 
 def empty_drops_cr_proc(proc, filt_vec, P):
@@ -28,7 +33,8 @@ def empty_drops_cr_proc(proc, filt_vec, P):
                        for row in proc.rows_per_cb[icb]]
         n_umi[cbi] = int(proc.n_umi_per_cb[icb])
     simple = {int(proc.ind_cb[i]) for i in range(proc.n_cb) if filt_vec[i]}
-    extra = empty_drops_cr(counts, n_umi, proc.features_number, simple, P)
+    extra = empty_drops_cr(counts, n_umi, proc.features_number, simple, P,
+                           proc.device)
     out = filt_vec.copy()
     for cbi in extra:
         out[int(proc.ind_cb_wl[cbi])] = True
@@ -36,8 +42,10 @@ def empty_drops_cr_proc(proc, filt_vec, P):
 
 
 def empty_drops_cr(counts: Dict[int, List], n_umi_per_cb: Dict[int, int],
-                   n_genes_total: int, simple_filtered: set, P) -> set:
-    """returns the set of ADDITIONAL cell barcodes called non-ambient"""
+                   n_genes_total: int, simple_filtered: set, P,
+                   device="cpu") -> set:
+    """returns the set of ADDITIONAL cell barcodes called non-ambient; the
+    Monte-Carlo null runs on `device`"""
     filt = P.soloCellFilter
     ind_min = int(filt[4]) if len(filt) > 4 else 45000
     ind_max = int(filt[5]) if len(filt) > 5 else 90000
@@ -139,34 +147,35 @@ def empty_drops_cr(counts: Dict[int, List], n_umi_per_cb: Dict[int, int],
         obs_log_prob.append(log_fact[sum_count] - sum_log_fac + sum_count_log_p)
 
     # Monte-Carlo simulations (mt19937 + libstdc++ discrete_distribution)
-    psum = sum(amb_p_non0)
-    cp = []
-    acc = 0.0
-    for p in amb_p_non0:
-        acc += p / psum
-        cp.append(acc)
-    sim_log_prob = []
-    for isim in range(sim_n):
-        rng = MT19937((19760110 * (isim + 1)) & 0xFFFFFFFF)
-        cur = [0] * len(amb_p_non0)
-        row = [0.0] * (max_count + 1)
-        for ic in range(1, max_count + 1):
-            u = rng.uniform01()
-            ig1 = bisect_left(cp, u)
-            if ig1 >= len(cp):
-                ig1 = len(cp) - 1
-            cur[ig1] += 1
-            row[ic] = row[ic - 1] + amb_log_p_non0[ig1] + math.log(ic) - math.log(cur[ig1])
-        sim_log_prob.append(row)
+    # and each candidate's count of simulations below it, on the device
+    from ..ops import pipeline
+    with pipeline._tick("solo_mc"):
+        psum = sum(amb_p_non0)
+        cp = []
+        acc = 0.0
+        for p in amb_p_non0:
+            acc += p / psum
+            cp.append(acc)
+        n_cand = len(obs_log_prob)
+        cand_count = n_umi_sorted[i_first:i_first + n_cand]
+        group_count, group_off, obs_sorted, order = \
+            mc_null.group_candidates(cand_count, obs_log_prob)
+        logtab = [0.0] + [math.log(k) for k in range(1, max_count + 1)]
+        f64 = dict(dtype=torch.float64, device=device)
+        i32 = dict(dtype=torch.int32, device=device)
+        n_lower = np.empty(n_cand, dtype=np.int64)
+        n_lower[order] = mc_null.n_lower(
+            torch.tensor(cp, **f64), torch.tensor(amb_log_p_non0, **f64),
+            torch.tensor(logtab, **f64), torch.tensor(group_count, **i32),
+            torch.tensor(group_off, **i32), torch.tensor(obs_sorted, **f64),
+            sim_n)
+        n_lower = n_lower.tolist()
 
     # p-values + BH
-    n_cand = len(obs_log_prob)
     pvals = []
     for icand in range(n_cand):
-        count1 = n_umi_sorted[i_first + icand]
-        n_lower = sum(1 for sp in sim_log_prob if sp[count1] < obs_log_prob[icand])
         pvals.append((cbs[ind_count[i_first + icand]],
-                      (1 + n_lower) / (1 + sim_n)))
+                      (1 + n_lower[icand]) / (1 + sim_n)))
     pvals.sort(key=lambda t: t[1])
     padj = []
     for rank, (c, p) in enumerate(pvals, start=1):

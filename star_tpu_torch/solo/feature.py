@@ -193,11 +193,14 @@ class SoloReadFeature:
 
 
 class SoloFeatureProc:
-    """post-mapping per-feature counting (reference SoloFeature)"""
+    """post-mapping per-feature counting (reference SoloFeature); device:
+    where EmptyDrops_CR's Monte-Carlo null runs"""
 
     def __init__(self, feature_type: int, P, conf: DedupConf, trm, bc,
-                 read_feat: SoloReadFeature, read_info_yes: bool):
+                 read_feat: SoloReadFeature, read_info_yes: bool,
+                 device="cpu"):
         self.ft = feature_type
+        self.device = device
         self.P = P
         self.conf = conf
         self.trm = trm

@@ -14,6 +14,7 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .annotate import (FEATURE_NAMES, FEATURE_DIRNAMES, FT_GENE, FT_GENEFULL,
                        FT_GENEFULL_EXONOVERINTRON, FT_GENEFULL_EX50PAS, FT_SJ,
@@ -494,6 +495,7 @@ def solo_cell_filtering(P):
     proc = SoloFeatureProc.__new__(SoloFeatureProc)
     proc.ft = -1
     proc.P = P
+    proc.device = "cpu"     # no mapping job: the host runs the null
     proc.features_number = features_number
     proc.conf = DedupConf(["1MM_All"], "-", ["Unique"], 1)
     proc.trm = None
@@ -558,10 +560,17 @@ class SoloBarcodesSmartSeq:
 class Solo:
     """multi-feature STARsolo driver (reference Solo + SoloFeature)"""
 
-    def __init__(self, gi, P, trm):
+    def __init__(self, gi, P, trm, device="cpu"):
+        """device: the job's, where EmptyDrops_CR's Monte-Carlo null runs
+        (its CUDA kernel is loaded here, in the job's set-up)"""
         self.gi = gi
         self.P = P
         self.trm = trm
+        self.device = torch.device(device)
+        if self.device.type == "cuda" \
+                and P.soloCellFilter[0] == "EmptyDrops_CR":
+            from . import mc_null
+            mc_null.load()
         self.smart_seq = P.soloType[0] == "SmartSeq"
         if self.smart_seq:
             bad = [t for t in P.soloUMIdedup if t not in ("NoDedup", "Exact")]
@@ -690,7 +699,8 @@ class Solo:
         """the Solo.out files of every feature.  Under pipeline.TIMING its
         parts are spans inside run.py's solo_process: solo_collapse (the
         UMI collapse), solo_raw_out (Features.stats and the raw matrices),
-        solo_filter (cell filtering and the filtered matrices) and
+        solo_filter (cell filtering and the filtered matrices, with
+        EmptyDrops_CR's Monte-Carlo null in solo_mc inside it) and
         solo_stats (Summary.csv, UMIperCellSorted, CellReads.stats)"""
         from ..ops.pipeline import _tick
         P = self.P
@@ -707,7 +717,8 @@ class Solo:
         bar_inval = sum(self.bar_stats[k] for k in BAR_STATS[:9])
         for ft in self.features:
             proc = SoloFeatureProc(ft, P, self.conf, self.trm, self.bc,
-                                   self.recorders[ft], self.read_info_yes[ft])
+                                   self.recorders[ft], self.read_info_yes[ft],
+                                   self.device)
             self.procs[ft] = proc
             prefix = os.path.join(out_dir, FEATURE_DIRNAMES[ft]) + "/"
             os.makedirs(prefix, exist_ok=True)

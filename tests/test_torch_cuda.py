@@ -6,9 +6,11 @@ grow, the device finalize, select and pack on the card against the same
 engine on CPU tensors, and two-pass mapping, GeneCounts and BAM output on the
 card against the goldens, chimeric detection and the mate-overlap merge on
 the card against the goldens, STARsolo counting with CB/UB BAM tags on
-the card against the goldens, and the sharded index (four shards on the
-card) against the host oracle and the goldens, with the merges of a one-rank
-NCCL group.  They skip where no card is present.  This file
+the card against the goldens, EmptyDrops_CR's Monte-Carlo null kernel
+against its plain version and the solo_ed golden through it, and the
+sharded index (four shards on the card) against the host oracle and the
+goldens, with the merges of a one-rank NCCL group.  They skip where no card
+is present.  This file
 imports neither jax nor star_tpu, so on a machine with a card and no jax it
 runs as
 
@@ -395,6 +397,132 @@ def test_solo_on_card_matches_goldens(cuda, tmp_path, monkeypatch, case, gold,
     assert sum(v for (w, k), v in ds.GROW_STATS.items()
                if k == "fetch_launches") > 0
     assert sum(v for (w, k), v in be.LEVEL_STATS.items() if k == "device") > 0
+    assert solo_diff(prefix, os.path.join(TESTS, "golden", gold), files) == []
+
+
+def mc_inputs(n_genes, max_count, n_cand, seed):
+    """EmptyDrops_CR null inputs as lists: (cp, logp, logtab, counts, obs).
+    Candidates at counts 0..max_count, a third of them sharing one count; a
+    third of the observed values are rows of the first simulations (ties
+    with a row), a third repeat the last value, a third are random"""
+    import math
+    from bisect import bisect_left
+    from star_tpu_torch.utils.rng import MT19937
+    rng = np.random.default_rng(seed)
+    p = [x for x in rng.dirichlet(np.full(n_genes, 0.3)).tolist() if x > 0]
+    psum = sum(p)
+    cp, acc = [], 0.0
+    for x in p:
+        acc += x / psum
+        cp.append(acc)
+    logp = [math.log(x / psum) for x in p]
+    logtab = [0.0] + [math.log(k) for k in range(1, max_count + 1)]
+    rows = []
+    for isim in range(4):
+        mt = MT19937((19760110 * (isim + 1)) & 0xFFFFFFFF)
+        cur, row = {}, [0.0]
+        for ic in range(1, max_count + 1):
+            ig = min(bisect_left(cp, mt.uniform01()), len(cp) - 1)
+            cur[ig] = cur.get(ig, 0) + 1
+            row.append(row[-1] + logp[ig] + logtab[ic] - logtab[cur[ig]])
+        rows.append(row)
+    counts = rng.integers(0, max_count + 1, size=n_cand).tolist()
+    counts[:n_cand // 3] = [max(1, max_count // 2)] * (n_cand // 3)
+    obs = []
+    for i, c in enumerate(counts):
+        if i % 3 == 0:
+            obs.append(rows[i % 4][c])
+        elif i % 3 == 1:
+            obs.append(obs[-1])
+        else:
+            obs.append(float(rows[0][c] + rng.normal(0, 3)))
+    return cp, logp, logtab, counts, obs
+
+
+def mc_tensors(device, cp, logp, logtab, counts, obs):
+    from star_tpu_torch.solo import mc_null
+    gc, go, obs_sorted, _ = mc_null.group_candidates(counts, obs)
+    f64 = dict(dtype=torch.float64, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return (torch.tensor(cp, **f64), torch.tensor(logp, **f64),
+            torch.tensor(logtab, **f64), torch.tensor(gc, **i32),
+            torch.tensor(go, **i32), torch.tensor(obs_sorted, **f64))
+
+
+# (genes, max_count, simulations): a 10x cell's shape in shared memory and
+# beyond it (20,000 genes, 320 KB of cp and logp), one draw, and 420 draws
+# (840 words: a second generation of the generator)
+MC_CASES = [(1000, 15, 10000), (20000, 15, 10000), (5, 1, 10000),
+            (1000, 420, 2000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_genes,max_count,sim_n", MC_CASES,
+                         ids=[f"g{c[0]}_max{c[1]}" for c in MC_CASES])
+def test_mc_null_kernel_matches_plain(cuda, n_genes, max_count, sim_n):
+    from star_tpu_torch.solo import mc_null
+    inp = mc_inputs(n_genes, max_count, 300, n_genes + max_count)
+    args = mc_tensors(cuda, *inp)
+    assert (16 * args[0].numel() <= mc_null.SHARED_BYTES) == (n_genes < 20000)
+    n0 = mc_null.LAUNCHES
+    got = mc_null.null_histogram(*args, sim_n)
+    torch.cuda.synchronize()
+    assert mc_null.LAUNCHES == n0 + 1
+    want = mc_null.null_histogram(*mc_tensors("cpu", *inp), sim_n)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    n_groups = args[3].numel()
+    assert int(want.sum()) == sim_n * n_groups
+    mc_null.n_lower(*args, sim_n)
+    assert mc_null.LAUNCHES == n0 + 2
+
+
+@pytest.mark.cuda
+def test_mc_null_kernel_refuses_bad_inputs(cuda):
+    from star_tpu_torch.solo import mc_null
+    args = mc_tensors(cuda, *mc_inputs(50, 8, 20, 1))
+    bad = list(args)
+    bad[0] = args[0].float()
+    with pytest.raises(ValueError, match="cp must be"):
+        mc_null.null_histogram(*bad, 100)
+    bad = list(args)
+    bad[4] = args[4].long()
+    with pytest.raises(ValueError, match="group_off must be"):
+        mc_null.null_histogram(*bad, 100)
+    bad = list(args)
+    bad[5] = args[5].cpu()
+    with pytest.raises(ValueError, match="obs on cpu"):
+        mc_null.null_histogram(*bad, 100)
+    bad = list(args)
+    bad[0] = args[0].cpu()
+    with pytest.raises(ValueError, match="on cuda"):
+        mc_null.null_histogram(*bad, 100)
+
+
+@pytest.mark.cuda
+def test_solo_ed_golden_on_card_through_the_kernel(cuda, tmp_path,
+                                                   monkeypatch):
+    """the EmptyDrops_CR golden on the card with the device stitch engine
+    forced: Solo.out identical, its Monte-Carlo null one kernel launch (one
+    feature, Gene)"""
+    from chip_smoke import SOLO_ED_INDEX, solo_ed_index
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    from star_tpu_torch.solo import mc_null
+    case, gold, index, flags, files = next(c for c in SOLO_GOLDENS
+                                           if c[0] == "solo_ed")
+    assert index == SOLO_ED_INDEX
+    idx = str(tmp_path / "idx")
+    solo_ed_index(idx)
+    monkeypatch.delenv("STAR_TPU_DEVICE_STITCH", raising=False)
+    monkeypatch.setattr(be, "DEVICE_GROW_MIN_RECORDS",
+                        {s_max: 0 for _, s_max, _ in be.LEVELS})
+    prefix = str(tmp_path / "out") + "/"
+    n0, f0 = mc_null.LAUNCHES, fetch.LAUNCHES
+    align_reads(Parameters(["--genomeDir", idx, "--outFileNamePrefix",
+                            prefix, *flags]), device=cuda)
+    assert mc_null.LAUNCHES == n0 + 1 and fetch.LAUNCHES > f0
     assert solo_diff(prefix, os.path.join(TESTS, "golden", gold), files) == []
 
 

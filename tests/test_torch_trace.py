@@ -210,7 +210,7 @@ def _reader(name):
 REC = {"reads": 50000, "window_s": 80.0,
        "timers": {"untimed": 2.0, "read_input": 0.5, "batch_arrays": 1.0,
                   "host_path": 0.25, "emit": 3.0, "job_open": 1.5,
-                  "solo_collapse": 4.0, "solo_filter": 6.0}}
+                  "solo_collapse": 4.0, "solo_filter": 6.0, "solo_mc": 0.05}}
 READERS = {"untimed_pct": ("untimed", 2.5),
            "input_s_per_mread": ("read_input", 10.0),
            "batch_arrays_s_per_mread": ("batch_arrays", 20.0),
@@ -218,7 +218,8 @@ READERS = {"untimed_pct": ("untimed", 2.5),
            "emit_s_per_mread": ("emit", 60.0),
            "job_open_s": ("job_open", 1.5),
            "solo_collapse_s": ("solo_collapse", 4.0),
-           "solo_filter_s": ("solo_filter", 6.0)}
+           "solo_filter_s": ("solo_filter", 6.0),
+           "solo_mc_s": ("solo_mc", 0.05)}
 
 
 @pytest.mark.parametrize("name", sorted(READERS))
@@ -237,3 +238,14 @@ def test_host_path_reader_reads_zero_without_host_reads():
     nothing: the job's scope shows the tracer ran"""
     t = {k: v for k, v in REC["timers"].items() if k != "host_path"}
     assert _reader("host_path_s_per_mread")(dict(REC, timers=t)) == 0.0
+
+
+def test_solo_mc_reader_reads_zero_without_a_monte_carlo_step(monkeypatch):
+    """a traced job in which no EmptyDrops_CR Monte-Carlo step ran reads 0;
+    a program without the span (no solo/mc_null.py) reads nothing"""
+    t = {k: v for k, v in REC["timers"].items() if k != "solo_mc"}
+    read = _reader("solo_mc_s")
+    assert read(dict(REC, timers=t)) == 0.0
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name: None)
+    assert read(dict(REC, timers=t)) is None
+    assert read(REC) == pytest.approx(0.05)
