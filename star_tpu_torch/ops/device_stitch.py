@@ -13,8 +13,9 @@ Design:
   * Lane state lives on the device as three packed int32 row matrices (SCAL,
     EX and SJ blocks).  The active lanes form one contiguous queue; each
     step stitches seed s onto every active lane in chunks of at most A_CAP
-    lanes, appends the chains that grew, and at the step's end compacts the
-    queue and moves completed chains to an append-only retired buffer.
+    lanes (chunk_lanes: fewer for long reads), appends the chains that
+    grew, and at the step's end compacts the queue and moves completed
+    chains to an append-only retired buffer.
   * The step/chunk loop runs on the host (a lax.while_loop in the JAX
     package): it waits for the device once per chunk (how many chains
     grew) and once more at each step's end (how many lanes stay and retire).
@@ -1356,6 +1357,23 @@ def device_tables(gi, device):
 # about 1.9 and 7.5 GB, well inside an 80 GB card
 A_HARD = 1 << 21
 R_HARD = 1 << 23
+# bytes of one [lanes, 2 * Lpad + 5] int32 scan tensor of a W512 grow chunk
+CHUNK_SCAN_BYTES = 1 << 26
+
+
+def chunk_lanes(s_max: int, Lpad: int) -> int:
+    """A_CAP, the lanes one grow chunk stitches at once: 2^14 at level 0;
+    at the W512 level the largest power of two from 2^10 to 2^16 whose scan
+    tensors fit CHUNK_SCAN_BYTES: 2^16 lanes for reads up to 123 bases,
+    2^15 up to 251 (2 x 100 pairs with their spacer).  A group's largest
+    chunk holds min(A_CAP, the most lanes any of its steps holds), so its
+    memory follows the data up to a full chunk; the byte bound keeps that
+    full chunk small for long reads.  The cost is known: half the lanes is
+    twice the chunks, each a host loop of launches and one wait (PERF.md)."""
+    if s_max <= 16:
+        return 1 << 14
+    fit = CHUNK_SCAN_BYTES // (4 * (2 * Lpad + 5))
+    return 1 << min(16, max(fit.bit_length() - 1, 10))
 
 
 def grow_chains_device(gi, P, st, ws, RS, nmm_max_read, Lpad, s_max,
@@ -1533,7 +1551,7 @@ def _run_group(ctx: _GrowCtx, a: int, b_: int):
     # sized from the group; an overflow doubles them
     AMAX = min(_round_up(2 * NPg + NWg // 2, 1 << 14), A_HARD)
     RMAX = min(_round_up(NPg + 2 * NWg, 1 << 16), R_HARD)
-    A_CAP = 1 << (14 if ctx.s_max <= 16 else 16)
+    A_CAP = chunk_lanes(ctx.s_max, ctx.cfg.Lpad)
 
     put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     fb0 = st.fallback.astype(np.int32)

@@ -48,11 +48,18 @@ MAXP = 64  # probes per chain cap (matches the round-1 64-round cap)
 # emit, solo_count, quant, bam_encode and its end of job (see run.py);
 # solo_process with solo_collapse, solo_raw_out, solo_filter and
 # solo_stats inside it (solo/solo.py Solo.process), and solo_mc inside
-# solo_filter (EmptyDrops_CR's Monte-Carlo null, solo/emptydrops.py).  A job (_job, around
-# run.align_reads) adds the seconds no top-level span covers to
+# solo_filter (EmptyDrops_CR's Monte-Carlo null, solo/emptydrops.py); trsam
+# inside quant (quant/trsam.py quant_transcriptome: the bans, the soft-clip
+# extension and the projection); bysj_stage2 (run.py: BySJout's junction
+# filter and the held reads mapped again, with their output).  A job (_job,
+# around run.align_reads) adds the seconds no top-level span covers to
 # TIMERS["untimed"].  No span stays open across a yield, and code outside
 # this module and run.py looks _tick up here at call time, so that a caller
 # may stand a subclass in for it.
+# Counters, kept in COUNTS under the same switch and cleared with SPANS by
+# the job: bysj_held (reads held for BySJout's stage 2), trsam_records
+# (records written to Aligned.toTranscriptome.out.bam) and trsam_banned
+# (alignments --quantTranscriptomeBan kept out of it).
 # STAR_TPU_DUMP_STITCH=<dir> pickles each batch's stitch inputs there, with
 # the read matrix and chain descriptors its seed loop ran on.
 import collections as _collections
@@ -62,6 +69,7 @@ import time as _time
 TIMING = bool(_os.environ.get("STAR_TPU_TIMING"))
 TIMERS = _collections.defaultdict(float)
 SPANS = []      # (key, parent index or -1, batch index, t0_ns, t1_ns)
+COUNTS = _collections.defaultdict(int)
 _OPEN = []      # indices into SPANS of the open spans, innermost last
 BATCH = -1      # the job's batch last begun (DeviceAligner._align_batch)
 
@@ -90,17 +98,24 @@ class _tick:
             TIMERS[key] += (t1 - t0) / 1e9
 
 
+def _count(key):
+    """add 1 to COUNTS[key] while tracing"""
+    if TIMING:
+        COUNTS[key] += 1
+
+
 class _job:
-    """the scope of one mapping job (run.align_reads): clears SPANS when it
-    opens and adds to TIMERS["untimed"] the job's seconds outside every
-    top-level span when it closes.  Not a _tick, so a recorder of _tick
-    spans never sees a span that covers the whole job."""
+    """the scope of one mapping job (run.align_reads): clears SPANS and
+    COUNTS when it opens and adds to TIMERS["untimed"] the job's seconds
+    outside every top-level span when it closes.  Not a _tick, so a recorder
+    of _tick spans never sees a span that covers the whole job."""
     _t0 = None
 
     def __enter__(self):
         global BATCH
         if TIMING:
             SPANS.clear()
+            COUNTS.clear()
             _OPEN.clear()
             BATCH = -1
             self._t0 = _time.time_ns()
@@ -319,6 +334,10 @@ class DeviceAligner:
                 if pre is not None and fast_fin:
                     out = _fast_finish(self.host, res, seeds, pre,
                                        P, self.gi)
+                    if P.quantModeTrSAM:
+                        # quant_transcriptome's soft-clip extension reads
+                        # the encoded read, as finish_read leaves it
+                        out.read1, out.read1rc = reads[0], reads[2]
                 else:
                     with _tick("host_path"):
                         out = self.host.finish_read(res, reads, seeds,

@@ -3,7 +3,8 @@
 Reference behavior: source/ReadAlign_quantTranscriptome.cpp — per-alignment
 bans (indel / softclip-extension with mismatch recheck / single-end),
 projection via quant_align, random primary pick from the shared mt19937
-stream, BAM records with NH/HI attributes only.
+stream, BAM records with NH/HI attributes only.  While tracing, each
+alignment a ban keeps out adds to pipeline.COUNTS["trsam_banned"].
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ def quant_transcriptome(res, trm: Transcriptome, gi, P, rng,
                         out_filter_mm_max_total: int):
     """project all alignments of a read; returns list of Transcript in
     transcript coordinates with primaryFlag set on a random one."""
+    from ..ops import pipeline
     align_t = []
     n_mates = len(res.seqs)
     ban_indel = not P.quantTrSAMindel
@@ -34,8 +36,10 @@ def quant_transcriptome(res, trm: Transcriptome, gi, P, rng,
     ban_single = not P.quantTrSAMsingleEnd
     for a1 in res.transcripts[:res.n_tr]:
         if ban_indel and (a1.nDel > 0 or a1.nIns > 0):
+            pipeline._count("trsam_banned")
             continue
         if ban_single and n_mates == 2 and a1.exons[0][3] == a1.exons[-1][3]:
+            pipeline._count("trsam_banned")
             continue
         align = a1
         if ban_softclip:
@@ -70,6 +74,7 @@ def quant_transcriptome(res, trm: Transcriptome, gi, P, rng,
                 a2.exons[iab][2] += left1 + right1
             if a2.nMM + n_mm1 > min(out_filter_mm_max_total,
                                     int(P.outFilterMismatchNoverLmax * (res.lread - 1))):
+                pipeline._count("trsam_banned")
                 continue
             align = a2
         align_t += quant_align(trm, align, res.lread)

@@ -24,14 +24,19 @@ align_reads is given none; the outputs, Log.out, the BAM collector,
 Transcriptome.load and Solo(...) with its whitelist, up to the first read),
 emit (each read's output outside the keys below: chimeric detection,
 SJ.out.tab records, stats, SAM and unmapped FASTX), bam_encode, quant
-(GeneCounts and TranscriptomeSAM per read), solo_count (the barcode match
+(GeneCounts and TranscriptomeSAM per read) with trsam inside it (the
+transcriptome bans, soft-clip extension and projection, without the BAM
+records), bysj_stage2 (BySJout's junction filter and the held reads mapped
+again on the host, with their output), solo_count (the barcode match
 and the per-read STARsolo feature record, or the CB_samTagOut barcode
 match), solo_process (STARsolo counting, cell filtering and the Solo.out
 files; solo/solo.py splits it), bam_finish (the coordinate sort and the BAM
 writes), signal and job_close (the streams closed after the last read;
 SJ.out.tab, ReadsPerGene, the chimeric files and Log.final.out).
 align_reads is one job (pipeline._job): its seconds outside every
-top-level span go to TIMERS["untimed"].
+top-level span go to TIMERS["untimed"].  It counts into pipeline.COUNTS
+the reads BySJout holds for stage 2 (bysj_held) and the transcriptome
+records written (trsam_records).
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ from .align.engine import ReadAligner
 from .io.fastq import read_pairs, read_pairs_indexed
 from .io.sam import sam_header, write_read_sam
 from .io.sj import SJCollector
-from .ops.pipeline import _job, _tick
+from .ops.pipeline import _count, _job, _tick
 from .stats import RunStats
 
 
@@ -450,12 +455,14 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
             mm_max = min(P.outFilterMismatchNmax,
                          int(P.outFilterMismatchNoverReadLmax
                              * (res.read_length[0] + res.read_length[1])))
-            al_t = quantt(res, trm, gi, P, rng, mm_max)
+            with _tick("trsam"):
+                al_t = quantt(res, trm, gi, P, rng, mm_max)
             for i_t, at in enumerate(al_t):
                 at.roStr = 0
                 for (r, _, _, _) in enc(at, res, len(al_t), i_t, shim, P,
                                         attrs_order=["NH", "HI"]):
                     w.write(r)
+                    _count("trsam_records")
 
     def solo_read(res):
         if solo is not None and getattr(res, "solo_bc", None) is not None:
@@ -597,6 +604,7 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
             if res.unmap_type <= 0 and _has_novel_junction(res):
                 stats.read_n -= 1
                 stats.read_bases -= sum(len(s) for s in res.seqs)
+                _count("bysj_held")
                 held.append((res.name, res.seqs, res.quals,
                              res.read_file_type,
                              getattr(res, "i_read_all", 0),
@@ -607,22 +615,24 @@ def _run_mapping(P: Parameters, gi: GenomeIndex, use_device=None,
 
     if by_sjout and held:
         # stage 2: restrict stitching to the filtered novel junction set
-        novel = [(r[0], r[0] + r[1] - 1) for r in sj1.collapse_and_filter() if r[4] == 0]
-        import numpy as np
-        starts = np.array([x[0] for x in novel], dtype=np.int64)
-        ends = np.array([x[1] for x in novel], dtype=np.int64)
-        P2 = P.clone()
-        P2.outFilterBySJoutStage = 2
-        aligner = ReadAligner(gi, P2)
-        aligner.sj_novel = (starts, ends)
-        for name, seqs, quals, ftype, iread, solo_bc, ifile in held:
-            res = aligner.align_read(name, seqs, quals)
-            res.read_file_type = ftype
-            res.i_read_all = iread
-            res.solo_bc = solo_bc
-            res.read_file_index = ifile
-            stats.add_read(res)
-            emit(res)
+        with _tick("bysj_stage2"):
+            novel = [(r[0], r[0] + r[1] - 1)
+                     for r in sj1.collapse_and_filter() if r[4] == 0]
+            import numpy as np
+            starts = np.array([x[0] for x in novel], dtype=np.int64)
+            ends = np.array([x[1] for x in novel], dtype=np.int64)
+            P2 = P.clone()
+            P2.outFilterBySJoutStage = 2
+            aligner = ReadAligner(gi, P2)
+            aligner.sj_novel = (starts, ends)
+            for name, seqs, quals, ftype, iread, solo_bc, ifile in held:
+                res = aligner.align_read(name, seqs, quals)
+                res.read_file_type = ftype
+                res.i_read_all = iread
+                res.solo_bc = solo_bc
+                res.read_file_index = ifile
+                stats.add_read(res)
+                emit(res)
         P.outFilterBySJoutStage = 2  # final SJ output skips distance filter
 
     with _tick("job_close"):

@@ -5,7 +5,9 @@ against the host oracle, the device grow on the card against the numpy
 grow, the device finalize, select and pack on the card against the same
 engine on CPU tensors, and two-pass mapping, GeneCounts and BAM output on the
 card against the goldens, chimeric detection and the mate-overlap merge on
-the card against the goldens, STARsolo counting with CB/UB BAM tags on
+the card against the goldens, TranscriptomeSAM on the card's device path
+against the host oracle (single- and paired-end, soft-clipped alignments
+extended), STARsolo counting with CB/UB BAM tags on
 the card against the goldens, EmptyDrops_CR's Monte-Carlo null kernel
 against its plain version and the solo_ed golden through it, and the
 sharded index (four shards on the card) against the host oracle and the
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from chip_smoke import (ANNOT_GOLDENS, FUSION_GOLDENS, SOLO_GOLDENS,
-                        TESTS, same_output, solo_diff)
+                        TESTS, bam_records, same_output, solo_diff)
 from star_tpu_torch.ops import fetch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -585,3 +587,32 @@ def test_single_rank_nccl_merges(cuda):
     from chip_smoke import nccl_merges
     nccl_merges(torch, np)
     assert not dist.is_initialized()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["se", "pe"])
+def test_transcriptome_bam_on_card_matches_host(cuda, tmp_path, monkeypatch,
+                                                case):
+    """--quantMode TranscriptomeSAM with RSEM's default bans on the card's
+    device path (the device stitch engine forced on every level, the fast
+    finish): Aligned.toTranscriptome.out.bam record for record the host
+    oracle's, on reads whose changed ends soft-clip their alignments"""
+    import importlib.util
+    from star_tpu_torch.ops import batch_engine as be
+    # by path: the card's machine may hold another package named tests
+    spec = importlib.util.spec_from_file_location(
+        "torch_trsam_device", os.path.join(ROOT, "tests",
+                                           "test_torch_trsam_device.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    monkeypatch.delenv("STAR_TPU_DEVICE_STITCH", raising=False)
+    monkeypatch.setattr(be, "DEVICE_GROW_MIN_RECORDS",
+                        {s_max: 0 for _, s_max, _ in be.LEVELS})
+    reads = helpers.changed_reads(case, str(tmp_path))
+    n0 = fetch.LAUNCHES
+    dev = helpers.map_trsam(reads, str(tmp_path / "dev") + "/", cuda)
+    assert fetch.LAUNCHES > n0
+    host = helpers.map_trsam(reads, str(tmp_path / "host") + "/", "cpu",
+                             False)
+    refs, recs = bam_records(dev)
+    assert (refs, recs) == bam_records(host) and len(recs) > 50

@@ -95,6 +95,60 @@ def test_transcriptome_projection_and_encoding_match_jax(se_results):
     assert n_tr_out > 0
 
 
+# STAR_RSEM.sh's mismatch limits: the extension's re-check bans more
+ENCODE_MM = ["--outFilterMismatchNmax", "999",
+             "--outFilterMismatchNoverReadLmax", "0.04"]
+
+
+@pytest.mark.parametrize("case", ["se", "pe"])
+def test_device_path_transcriptome_on_clipped_reads_matches_jax(
+        tmp_path, monkeypatch, case):
+    """reads with changed ends, mapped on the device path (CPU tensors), so
+    that many alignments are soft-clipped (mates joined by the spacer in the
+    pair case): each read as run.py hands it to quant_transcriptome, with
+    the encoded read the fast finish sets, is projected by both packages
+    with each one's MT19937 stream under RSEM's ban IndelSoftclipSingleend;
+    the transcriptome records are the same bytes"""
+    from portbench.reference.bam import read_bam
+    from tests.test_torch_trsam_device import changed_reads, map_trsam
+    seen = []
+    real = trsam.quant_transcriptome
+
+    def keep(res, tr, gi, P, stream, mm_max):
+        seen.append((copy.deepcopy(res), mm_max))
+        return real(res, tr, gi, P, stream, mm_max)
+    monkeypatch.setattr(trsam, "quant_transcriptome", keep)
+    reads = changed_reads(case, str(tmp_path))
+    prefix = str(tmp_path / "dev") + "/"
+    map_trsam(reads, prefix, "cpu", extra=ENCODE_MM)
+    clipped = [r for r in read_bam(prefix + "Aligned.out.bam")[2]
+               if any(op == "S" for op, _ in r.cigar)]
+    assert len(clipped) > 20 and len(seen) > 50
+    assert all(res.read1 is not None for res, _ in seen)
+    argv = ["--genomeDir", IDX_GTF, "--readFilesIn", *reads, *ENCODE_MM,
+            "--quantMode", "TranscriptomeSAM"]
+    gj = JaxGenomeIndex.load(IDX_GTF)
+    both = {"port": (trsam, bam, rng, port_index(gj), Parameters(argv),
+                     trm.Transcriptome.load(IDX_GTF)),
+            "jax": (jtrsam, jbam, jrng, gj, JaxParameters(argv),
+                    jtrm.Transcriptome.load(IDX_GTF))}
+    recs = {}
+    for name, (q, b, r, gi, P, tr) in both.items():
+        q = real if name == "port" else q.quant_transcriptome
+        shim = (trsam if name == "port" else jtrsam).TrGenomeShim(tr)
+        stream = r.MT19937(P.runRNGseed)
+        out = recs[name] = []
+        for res, mm_max in copy.deepcopy(seen):
+            al_t = q(res, tr, gi, P, stream, mm_max)
+            for i_t, at in enumerate(al_t):
+                at.roStr = 0
+                out += [x[0] for x in b.encode_mapped(
+                    at, res, len(al_t), i_t, shim, P,
+                    attrs_order=["NH", "HI"])]
+    assert recs["port"] == recs["jax"]
+    assert len(recs["port"]) > 50
+
+
 GOLDEN_CASES = [
     # (golden, index, flags, files compared)
     ("se_quant", "genome_idx_gtf",

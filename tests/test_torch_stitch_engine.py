@@ -3,7 +3,9 @@ CPU, beyond the goldens of test_torch_stitch.py: a 2x150 PE set whose
 genome regions need two fetch rows (equal to the numpy grow on every level),
 the fetch region's column mapping at every span, the iteration cap's
 overflow 2, and capacity overflows that retry and split without changing a
-byte, or raise once one read's chains exceed the hard caps."""
+byte, or raise once one read's chains exceed the hard caps.  A grow chunk's
+lanes (chunk_lanes) shrink for long reads and change no lane of the
+result."""
 import copy
 import dataclasses
 import os
@@ -112,6 +114,40 @@ def test_iteration_cap_reports_overflow_2(se_level0):
     assert s_hi > 8
     capped = run(dataclasses.replace(ctx.cfg, s_max=0))
     assert capped[6] == 2 and capped[7] == 8 and capped[3] < full[3]
+
+
+def test_grow_result_is_independent_of_the_chunk_size(se_level0):
+    """the same level grown in chunks of 2^14 and of 64 lanes: the same
+    retired lanes, in the same order, and the same fallbacks and counts"""
+    gi, P, ws, st, RS, Lpad, nmm = se_level0
+    ctx = ds.grow_context(gi, P, copy.deepcopy(st), ws, RS, nmm, Lpad,
+                          be.S_MAX, be.CHAIN_CAP, "cpu")
+    NP = len(ctx.wan)
+    args = (ctx.Gf, ctx.rs_dev, torch.from_numpy(ctx.rows),
+            torch.from_numpy(ctx.pm), ctx.ft_dev, ctx.ct_dev, ctx.sjt,
+            torch.from_numpy(st.fallback.astype(np.int32)),
+            int(ctx.wan.max()))
+    out = [ds.make_grow_engine2(ctx.cfg, 1 << 15, 1 << 17, a_cap, NP, ctx.B,
+                                ctx.lmax, int(gi.n_genome), ctx.ntab)(*args)
+           for a_cap in (1 << 14, 64)]
+    assert out[0][6] == out[1][6] == 0 and out[0][3] == out[1][3] > 0
+    assert out[1][7] > out[0][7]          # more chunks, more iterations
+    for k in (0, 1, 2, 4, 5):
+        assert torch.equal(out[0][k], out[1][k]), k
+
+
+@pytest.mark.parametrize("s_max,read_len,want", [
+    (be.S_MAX, 1301, 1 << 14), (50, 91, 1 << 16), (50, 123, 1 << 16),
+    (50, 124, 1 << 15), (50, 201, 1 << 15), (50, 252, 1 << 14),
+    (50, 100_000, 1 << 10)])
+def test_chunk_lanes(s_max, read_len, want):
+    """level 0 always 2^14; W512 as many lanes as keep a chunk's
+    [lanes, 2 * Lpad + 5] int32 scan within CHUNK_SCAN_BYTES"""
+    got = ds.chunk_lanes(s_max, read_len + 2)
+    assert got == want
+    if s_max > be.S_MAX and want < 1 << 16:
+        assert 2 * got * 4 * (2 * (read_len + 2) + 5) > ds.CHUNK_SCAN_BYTES \
+            or got == 1 << 10
 
 
 @pytest.mark.parametrize("a_hard,r_hard,bail", [(1024, 4096, False),

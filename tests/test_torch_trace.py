@@ -3,7 +3,10 @@ golden single-end run and a CB_UMI_Simple STARsolo run, on the device path
 on CPU tensors: tracing changes no output byte, spans nest inside their
 parents on torch.profiler's clock, the job's scope leaves little untimed
 and is never a _tick, tracing off stores nothing, and the benchmark's
-readers of the new spans give the values expected."""
+readers of the new spans give the values expected.  On paired-end jobs
+with BySJout and TranscriptomeSAM, the counters (pipeline.COUNTS) count what
+the job did, each job anew, and the bysj_stage2 and trsam spans sit where
+they belong."""
 import importlib.util
 import math
 import os
@@ -45,6 +48,7 @@ CLOCK_LINES = ("Started job on", "Started mapping on", "Finished on",
 def _reset():
     pipeline.TIMERS.clear()
     pipeline.SPANS.clear()
+    pipeline.COUNTS.clear()
 
 
 @pytest.fixture
@@ -161,7 +165,7 @@ def test_tracing_off_stores_nothing(tmp_path):
     assert not pipeline.TIMING
     _run("se", str(tmp_path) + "/")
     assert pipeline.SPANS == [] and dict(pipeline.TIMERS) == {}
-    assert pipeline._OPEN == []
+    assert pipeline._OPEN == [] and dict(pipeline.COUNTS) == {}
 
 
 def test_tick_encloses_the_profilers_events(tracing):
@@ -210,7 +214,8 @@ def _reader(name):
 REC = {"reads": 50000, "window_s": 80.0,
        "timers": {"untimed": 2.0, "read_input": 0.5, "batch_arrays": 1.0,
                   "host_path": 0.25, "emit": 3.0, "job_open": 1.5,
-                  "solo_collapse": 4.0, "solo_filter": 6.0, "solo_mc": 0.05}}
+                  "solo_collapse": 4.0, "solo_filter": 6.0, "solo_mc": 0.05,
+                  "trsam": 0.75, "bysj_stage2": 1.25}}
 READERS = {"untimed_pct": ("untimed", 2.5),
            "input_s_per_mread": ("read_input", 10.0),
            "batch_arrays_s_per_mread": ("batch_arrays", 20.0),
@@ -219,7 +224,9 @@ READERS = {"untimed_pct": ("untimed", 2.5),
            "job_open_s": ("job_open", 1.5),
            "solo_collapse_s": ("solo_collapse", 4.0),
            "solo_filter_s": ("solo_filter", 6.0),
-           "solo_mc_s": ("solo_mc", 0.05)}
+           "solo_mc_s": ("solo_mc", 0.05),
+           "trsam_s_per_mread": ("trsam", 15.0),
+           "bysj_stage2_s_per_mread": ("bysj_stage2", 25.0)}
 
 
 @pytest.mark.parametrize("name", sorted(READERS))
@@ -249,3 +256,73 @@ def test_solo_mc_reader_reads_zero_without_a_monte_carlo_step(monkeypatch):
     monkeypatch.setattr(importlib.util, "find_spec", lambda name: None)
     assert read(dict(REC, timers=t)) is None
     assert read(REC) == pytest.approx(0.05)
+
+
+def test_bysj_stage2_reader_reads_zero_without_held_reads(monkeypatch):
+    """a traced job that held no read for BySJout's stage 2 reads 0; a
+    program without the span (no pipeline.COUNTS) reads nothing"""
+    t = {k: v for k, v in REC["timers"].items() if k != "bysj_stage2"}
+    read = _reader("bysj_stage2_s_per_mread")
+    assert read(dict(REC, timers=t)) == 0.0
+    monkeypatch.delattr(pipeline, "COUNTS")
+    assert read(dict(REC, timers=t)) is None
+    assert read(REC) == pytest.approx(25.0)
+
+
+COUNT_CASES = {
+    # every junction of this index is novel: BySJout holds reads
+    "bysj": ("genome_idx", ["--outFilterType", "BySJout"]),
+    # every junction annotated: nothing held; the transcriptome BAM
+    "trsam": ("genome_idx_gtf", ["--outFilterType", "BySJout", "--quantMode",
+                                 "TranscriptomeSAM", "--outSAMtype", "BAM",
+                                 "Unsorted"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COUNT_CASES))
+def test_counters_and_their_spans(tmp_path, tracing, monkeypatch, case):
+    """bysj_held is the reads mapped again in stage 2, under one top-level
+    bysj_stage2 span that holds their output; trsam_records is the
+    transcriptome BAM's records and trsam_banned the alignments the default
+    bans kept out of it, with every trsam span inside quant; a second job
+    counts from 0 again"""
+    from portbench.reference.bam import read_bam
+    from tests.test_torch_trsam_device import ends_changed
+    idx, extra = COUNT_CASES[case]
+    reads = []
+    for f in ("reads_pe_1.fastq", "reads_pe_2.fastq"):
+        ends_changed(os.path.join(DATA, f), str(tmp_path / f))
+        reads.append(str(tmp_path / f))
+    remapped = []
+    real = ReadAligner.align_read
+
+    def align_read(self, *a, **k):
+        remapped.append(1)
+        return real(self, *a, **k)
+    monkeypatch.setattr(ReadAligner, "align_read", align_read)
+    counts = []
+    for job in ("a", "b"):
+        prefix = str(tmp_path / job) + "/"
+        P = Parameters(["--genomeDir", os.path.join(GOLD, idx), "--readFilesIn",
+                        *reads, *extra, "--tpuBatchSize", str(BATCH),
+                        "--outFileNamePrefix", prefix])
+        run.align_reads(P, device="cpu")
+        counts.append(dict(pipeline.COUNTS))
+    assert counts[0] == counts[1]
+    c = counts[0]
+    spans = pipeline.SPANS
+    keys = [s[0] for s in spans]
+    if case == "bysj":
+        assert c == {"bysj_held": len(remapped) // 2} and c["bysj_held"] > 5
+        (i,) = [k for k, s in enumerate(spans) if s[0] == "bysj_stage2"]
+        assert spans[i][1] == -1
+        inside = [s[0] for s in spans[i + 1:] if s[1] == i]
+        assert inside.count("emit") == 2 * c["bysj_held"]
+        assert "trsam" not in keys
+    else:
+        n_rec = len(read_bam(prefix + "Aligned.toTranscriptome.out.bam")[2])
+        assert c["trsam_records"] == n_rec > 50
+        assert c["trsam_banned"] > 5 and "bysj_held" not in c
+        assert not remapped and "bysj_stage2" not in keys
+        tr = [s for s in spans if s[0] == "trsam"]
+        assert tr and all(spans[s[1]][0] == "quant" for s in tr)
