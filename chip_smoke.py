@@ -28,7 +28,8 @@ in order; any failure ends the run with a non-zero exit and no result line:
              device engine's grow, finalize, select, download and ordering
              seconds, retired against downloaded lanes, grow iterations and
              launches, fetch_window launches per phase (seed loop, grow,
-             finalize, pack), peak device memory (each level whose grow ran
+             finalize, pack), stitch_chunk launches (one per grow
+             iteration), peak device memory (each level whose grow ran
              on the card must have finalized there); the grow sweep: each
              level's grow replayed from the batch's dumped inputs on its
              first n reads, numpy engine against the card (seconds, seed
@@ -40,7 +41,12 @@ in order; any failure ends the run with a non-zero exit and no result line:
              device time (each call between its own CUDA events,
              queued behind a sleep kernel), the old fetch_rows + cut
              composition, the library call table.unfold(0, W, 1)[start], the
-             plain version and the bytes bound; the W512 finalize replayed, numpy finalize_lanes against
+             plain version and the bytes bound; the stitch replayed once
+             more with each grow chunk launched again alone on copies of its
+             inputs (chunk_replay), the stitch_chunk kernel's rows and ok
+             held against the plain version's, its device time beside the
+             plain version's and its bytes bound (chunk_bytes, from the
+             kernel's branch of each lane); the W512 finalize replayed, numpy finalize_lanes against
              the card (accept and extended lanes equal, both timed); 1,024
              probes held against the host MMP oracle; the first 256 reads'
              SAM against the per-read host path (--tpuUseDevice 0); and the
@@ -51,8 +57,8 @@ in order; any failure ends the run with a non-zero exit and no result line:
              se_gtf, se_quant, se_trsam, se_bam and se_2pass with the device
              stitch engine forced on every level (SAM, SJ.out.tab,
              ReadsPerGene.out.tab identical, BAMs record for record; each
-             case's fetch_window launches and the lanes whose junction lookup
-             on the card found an annotated junction); then the full batch
+             case's fetch_window launches and the lanes whose stitch
+             on the card crossed an annotated junction); then the full batch
              on the chr20-scale index with a synthetic annotation (the
              generator's planted genes and 1,000 eleven-exon genes at random
              loci outside the reads' region, ~10,000 junctions) given at
@@ -85,7 +91,12 @@ in order; any failure ends the run with a non-zero exit and no result line:
              its breakpoint in Chimeric.out.junction, and the first 512
              pairs mapped on the card and with the host oracle
              (--tpuUseDevice 0) must give the same SAM, SJ.out.tab and
-             Chimeric.out.junction;
+             Chimeric.out.junction; then the generator's 8,192 2 x 100 pairs
+             on phase 5's saved pass-2 index with the default flags and the
+             device stitch engine forced (pe_chunks): one stitch_chunk
+             launch per grow iteration, and the batch's chunks replayed as
+             phase 4's are, with some lanes on the mate join, the annotated
+             junction join and the annotation lookup;
   7. solo    STARsolo on cuda: every golden of SOLO_GOLDENS (CB_UMI_Simple
              with every UMI dedup type, multimappers, MultiGeneUMI filters,
              EmptyDrops_CR, multi-feature runs, CB/UB-tagged BAMs and
@@ -108,7 +119,10 @@ in order; any failure ends the run with a non-zero exit and no result line:
              UMIs per cell and reads with valid barcodes (Summary.csv); a
              level must run on the card, the grow launch fetch_window, Gene
              and GeneFull count, EmptyDrops_CR's Monte-Carlo null launch
-             its kernel once a feature; each of those launches again on its
+             its kernel once a feature, stitch_chunk launch once per grow
+             iteration; the first batch's grow chunks replayed as phase 4's
+             are, with some lanes on the annotated junction join and the
+             annotation lookup; each mc_null launch again on its
              own inputs, held against the plain version (on the CPU, as a
              host job runs it) and timed beside it, beside one simulation
              alone (the serial chain) and the plain version on the card;
@@ -140,8 +154,9 @@ in order; any failure ends the run with a non-zero exit and no result line:
              destroyed after.
 
 Then one JSON line of kernel measurements (launches: those of phase 4's
-batch, phase 5's two-pass run, phase 6's pair set, phase 7's single-cell
-run and phase 8's sharded batch), the card's name and power limit
+batch, phase 5's two-pass run, phase 6's pair sets, phase 7's single-cell
+run and phase 8's sharded batch; stitch_chunk's replays of phases 4, 6
+and 7), the card's name and power limit
 (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}.
 Generated data, the index and outputs stay under star_tpu_torch/_build/.
@@ -569,6 +584,22 @@ def stitch_launches(ds):
             for k in ("fetch", "finalize", "pack")}
 
 
+def reset_launches(fetch, tile_fetch):
+    """zero the kernels' launch counters before a main path"""
+    from star_tpu_torch.ops import device_stitch
+    fetch.LAUNCHES = fetch.ROWS_LAUNCHES = tile_fetch.LAUNCHES = 0
+    device_stitch.LAUNCHES = 0
+
+
+def main_launches(fetch, tile_fetch):
+    """the kernels' launches since reset_launches"""
+    from star_tpu_torch.ops import device_stitch
+    return {"fetch_window": fetch.LAUNCHES,
+            "fetch_rows": fetch.ROWS_LAUNCHES,
+            "tile_fetch": tile_fetch.LAUNCHES,
+            "stitch_chunk": device_stitch.LAUNCHES}
+
+
 def reset_counts(ds, be, pipeline):
     be.LEVEL_STATS.clear()
     be.FB_STATS.clear()
@@ -916,6 +947,170 @@ def replay_fetches(torch, np, gi, P, d, fetch, want):
     return out
 
 
+def chunk_branches(torch, ds, cfg, sc, ex, rows, pm, s):
+    """each lane's branch in the chunk kernel, taken in its order
+    (csrc/stitch_chunk.cu, stitch): "join" the annotated-junction joins,
+    which stage no region; "same" the same-fragment lanes that stage the
+    read region and the donor's genome region (those rejected before, on
+    their spans or intron_max, stage none); "dels" those of them that stage
+    the acceptor's genome region too; "mate" the mate joins past the
+    protrusion and mates-gap checks, with "win1" / "win2" the Lpad + 2 byte
+    windows that each of their two extensions stages (4, or 2 to the end)"""
+    prow = sc[:, ds.C_PROW].long().clamp(0, pm.shape[0] - 1)
+    seed = rows[(pm[:, 0][prow] + s).long().clamp(0, rows.shape[0] - 1)]
+    nE = sc[:, ds.C_NEX]
+    last = (nE - 1).clamp(0, ds.E - 1).long()
+
+    def ex_last(f):
+        return ex.gather(1, (last * 5 + f)[:, None])[:, 0]
+    rB, gB, L, fragB, sjA = (seed[:, k] for k in range(5))
+    ra, ga = sc[:, ds.C_TR2], sc[:, ds.C_TG2]
+    last_frag = ex_last(ds.EX_FRAG)
+    live = (nE > 0) & (nE < ds.E)
+    join = (live & (sjA != -1) & (ex_last(ds.EX_SJA) == sjA)
+            & (last_frag == fragB) & (rB == ra + 1) & (ga + 1 < gB))
+    trim = (ra + 1 - rB).clamp(min=0)
+    g_gap, r_gap = gB + trim - ga - 1, rB + trim - ra - 1
+    same = (live & ~join & (last_frag == fragB) & (rB + L - 1 > ra)
+            & (gB + L - 1 > ga) & (g_gap != r_gap))
+    if cfg.intron_max > 0:
+        same &= ~((g_gap > r_gap) & (g_gap - r_gap > cfg.intron_max))
+    dels = same & (g_gap > r_gap)
+    rs0, gs0 = ex[:, ds.EX_RS], ex[:, ds.EX_GS]
+    mate = (live & ~join & (last_frag != fragB)
+            & ((gB + rs0 + cfg.protrude_max >= gs0) | (gs0 < rs0)))
+    if not cfg.has_pe:
+        mate = torch.zeros_like(mate)
+    if cfg.mates_gap_max > 0:
+        mate &= gB <= (ex_last(ds.EX_GS) + ex_last(ds.EX_LEN)
+                       + cfg.mates_gap_max)
+    to_end = torch.tensor([cfg.ends_ext[0][1], cfg.ends_ext[1][1]],
+                          device=sc.device)
+    return {"join": join, "same": same, "dels": dels, "mate": mate,
+            "win1": 4 - 2 * to_end[last_frag.clamp(0, 1).long()].int(),
+            "win2": 4 - 2 * to_end[fragB.clamp(0, 1).long()].int()}
+
+
+def chunk_bytes(ds, cfg, n, br):
+    """bytes a grow chunk of n lanes must move (br: chunk_branches): each
+    lane's row in and out (896 B each way), its seed row and ok; the
+    regions of the lanes that stage them; the mate joins' windows"""
+    rspan, gspan = ds.region_spans(cfg.Lpad)
+    wins = int(((br["win1"] + br["win2"]) * br["mate"]).sum())
+    return (n * (2 * 4 * (ds.NSCAL + ds.NEXB + ds.NSJB) + 32 + 1)
+            + int(br["same"].sum()) * (rspan + gspan)
+            + int(br["dels"].sum()) * gspan + wins * (cfg.Lpad + 2))
+
+
+def chunk_replay(torch, np, gi, P, d, label, need=()):
+    """the batch's stitch again from its dumped inputs, the device grow on
+    every level, each grow chunk launched once more on copies of its
+    inputs: the kernel's rows and ok held against the plain version's
+    (torch.equal), the kernel's device time (its own CUDA events, queued
+    behind a sleep kernel), the plain version's (events around its
+    launches), the bytes bound and the lanes of each branch ("joins",
+    "same", "mates"; "found": same-fragment lanes accepted across a junction
+    that the annotation lookup found).  Each key of need must count some
+    lane.  Returns {level W: totals}."""
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    real = ds.stitch_chunk
+    per = {}
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    def spy(*a):
+        tabs, ins, s = a[:9], [t.clone() for t in a[9:15]], a[15]
+        ok = real(*a)
+        got = tuple(torch.empty_like(t) for t in ins[:3])
+        want = tuple(torch.empty_like(t) for t in ins[:3])
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 22)
+        k0, k1, p0, p1 = event(), event(), event(), event()
+        k0.record()
+        ok_k = real(*tabs, *ins, s, got)
+        k1.record()
+        torch.cuda.synchronize()
+        p0.record()
+        ok_p = ds._stitch_chunk_plain(*tabs, *ins, s, want)
+        p1.record()
+        torch.cuda.synchronize()
+        if not (torch.equal(ok_k, ok_p) and torch.equal(ok_k, ok)
+                and all(torch.equal(g, w) for g, w in zip(got, want))
+                and all(torch.equal(g, o) for g, o in zip(got, a[16]))):
+            raise AssertionError(f"{label}: stitch_chunk kernel differs from "
+                                 f"plain at step {s} (Lpad {tabs[0].Lpad})")
+        cfg, sc = tabs[0], ins[0]
+        br = chunk_branches(torch, ds, cfg, sc, ins[1], ins[3], ins[4], s)
+        nE = sc[:, ds.C_NEX]
+        last = (nE - 1).clamp(0, ds.E - 1).long()
+        annot = got[2].gather(1, (last * 5 + ds.SJ_ANNOT)[:, None])[:, 0]
+        found = br["same"] & ok_k & (got[0][:, ds.C_NEX] > nE) & (annot == 1)
+        key = "W512" if cfg.s_max > be.S_MAX else f"W{be.W_MAX}"
+        r = per.setdefault(key, {"Lpad": cfg.Lpad, "has_pe": cfg.has_pe,
+                                 "has_sjdb": cfg.has_sjdb, "launches": 0,
+                                 "lanes": 0, "max_lanes": 0, "ms": 0.0,
+                                 "plain_ms": 0.0, "bytes": 0, "joins": 0,
+                                 "same": 0, "mates": 0, "found": 0})
+        r["launches"] += 1
+        r["lanes"] += sc.shape[0]
+        r["max_lanes"] = max(r["max_lanes"], sc.shape[0])
+        r["ms"] += k0.elapsed_time(k1)
+        r["plain_ms"] += p0.elapsed_time(p1)
+        r["bytes"] += chunk_bytes(ds, cfg, sc.shape[0], br)
+        for k, m in (("joins", br["join"]), ("same", br["same"]),
+                     ("mates", br["mate"]), ("found", found)):
+            r[k] += int(m.sum())
+        return ok
+
+    n0 = ds.LAUNCHES
+    gate = be.DEVICE_GROW_MIN_RECORDS
+    be.DEVICE_GROW_MIN_RECORDS = {s: 0 for _, s, _ in be.LEVELS}
+    ds.stitch_chunk = spy
+    try:
+        be.stitch_batch(gi, P, d["seeds"], d["fwd"], d["rc"], d["lread"],
+                        d["read_len2"], d["nmm_max"], lazy=True,
+                        device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        ds.stitch_chunk = real
+        be.DEVICE_GROW_MIN_RECORDS = gate
+    for key, r in per.items():
+        r["bound_ms"] = r["bytes"] / HBM_BW * 1e3
+        log(f"{label}: the {key} grow's chunks (replayed, Lpad {r['Lpad']}, "
+            f"pe {r['has_pe']}, sjdb {r['has_sjdb']}): {r['launches']} "
+            f"launches, {r['lanes']} lanes (at most {r['max_lanes']} a "
+            f"chunk; {r['joins']} annotated joins, {r['same']} same-fragment "
+            f"stitches with regions, {r['found']} of them accepted across a "
+            f"junction the annotation lookup found, {r['mates']} mate joins),"
+            f" each held against the plain version: kernel {r['ms']:.3f} ms "
+            f"({r['ms'] / r['launches']:.4f} ms a chunk), bound "
+            f"{r['bound_ms']:.3f} ms ({r['bytes']} B at {HBM_BW:.3g} B/s), "
+            f"plain {r['plain_ms']:.3f} ms")
+    ds.LAUNCHES = n0
+    missing = [k for k in need if not sum(r[k] for r in per.values())]
+    if missing or not per:
+        raise AssertionError(f"{label}: no replayed lane counted {missing} "
+                             f"(levels {sorted(per)})")
+    return per
+
+
+def check_chunk_launches(ds, be, launches, label):
+    """one stitch_chunk launch per grow iteration on every level since
+    reset_counts, and at least one; returns {level: (launches, grow
+    iterations)}"""
+    chunks = {w: (ds.GROW_STATS[w, "chunk_launches"],
+                  ds.GROW_STATS[w, "iterations"]) for w in levels(be)}
+    if launches["stitch_chunk"] != sum(c for c, _ in chunks.values()) or \
+            any(c != it for c, it in chunks.values()) or \
+            launches["stitch_chunk"] <= 0:
+        raise AssertionError(f"{label}: stitch_chunk launches "
+                             f"{launches['stitch_chunk']}, per level "
+                             f"(launches, grow iterations) {chunks}")
+    return chunks
+
+
 def probe_set(np, reads, ql):
     """N_PROBES seeded probes cut from the batch's reads, half of them
     reverse-complemented: ([N_PROBES, ql] int8, -1 padded; lengths)"""
@@ -982,9 +1177,7 @@ def phase_full(torch, np, fetch, data_proc, data):
     reset_counts(ds, be, pipeline)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fetch.LAUNCHES = 0                           # counts of the main path
-    fetch.ROWS_LAUNCHES = 0
-    tile_fetch.LAUNCHES = 0
+    reset_launches(fetch, tile_fetch)       # counts of the main path
     t0 = time.time()
     try:
         stats = align_reads(P, gi=gi, device=DEVICE)
@@ -992,9 +1185,7 @@ def phase_full(torch, np, fetch, data_proc, data):
     finally:
         del os.environ["STAR_TPU_DUMP_STITCH"]
     wall = time.time() - t0
-    launches = {"fetch_window": fetch.LAUNCHES,
-                "fetch_rows": fetch.ROWS_LAUNCHES,
-                "tile_fetch": tile_fetch.LAUNCHES}
+    launches = main_launches(fetch, tile_fetch)
     pipeline.TIMING = False
     peak = torch.cuda.max_memory_allocated()
     sl = stitch_launches(ds)
@@ -1004,6 +1195,7 @@ def phase_full(torch, np, fetch, data_proc, data):
     if min(per_phase["seed"], per_phase["grow"], per_phase["finalize"]) <= 0:
         raise AssertionError(f"full: a phase never launched fetch_window: "
                              f"{per_phase}")
+    chunks = check_chunk_launches(ds, be, launches, "full")
     if stats.read_n != N_READS:
         raise AssertionError(f"full: {stats.read_n} reads aligned, "
                              f"expected {N_READS}")
@@ -1011,8 +1203,9 @@ def phase_full(torch, np, fetch, data_proc, data):
         f"reads/s (index upload included); fetch_window launches "
         f"{launches['fetch_window']} (seed loop {per_phase['seed']}, grow "
         f"{sl['fetch']}, finalize {sl['finalize']}, pack {sl['pack']}), "
-        f"fetch_rows {launches['fetch_rows']}, tile_fetch "
-        f"{launches['tile_fetch']}; peak device memory {peak} B")
+        f"stitch_chunk {launches['stitch_chunk']} (per level: launches, "
+        f"grow iterations {chunks}), fetch_rows {launches['fetch_rows']}, "
+        f"tile_fetch {launches['tile_fetch']}; peak device memory {peak} B")
     log(f"full: phases {pipeline.timing_report()}")
     grow_report(ds, be, pipeline, "full")
     check_card_levels(ds, be, "full")
@@ -1035,6 +1228,7 @@ def phase_full(torch, np, fetch, data_proc, data):
               "sweep": grow_sweep(np, gi, P, d, reach),
               "fetches": replay_fetches(torch, np, gi, P, d, fetch,
                                         per_phase),
+              "chunks": chunk_replay(torch, np, gi, P, d, "full"),
               "finalize": finalize_replay(np, gi, P, d, reach, pipeline),
               "seed_in": (d["read_mat"], d["chains"])}
     del d
@@ -1189,8 +1383,9 @@ TR_FILES = ("exonInfo.tab", "transcriptInfo.tab", "geneInfo.tab",
 def annot_goldens(fetch):
     """the annotation layer's goldens on the card with the device stitch
     engine forced on every level; each case's fetch_window launches and the
-    lanes whose junction lookup on the card (_sjdb_find_dev) found an
-    annotated junction"""
+    lanes that the grow's chunk kernel stitched across an annotated
+    junction (its junction lookup or an annotated seed's join: the new
+    junction's annotated flag)"""
     import shutil
     from star_tpu_torch.ops import batch_engine as be
     from star_tpu_torch.ops import device_stitch as ds
@@ -1198,14 +1393,19 @@ def annot_goldens(fetch):
     from star_tpu_torch.run import align_reads
     found = []
 
-    def find(real, *a):
-        ind = real(*a)
-        found.append(int((ind >= 0).sum()))
-        return ind
+    def chunk(real, *a):
+        ok = real(*a)
+        sc, (sc_out, _, sj_out) = a[9], a[16]
+        nE = sc[:, ds.C_NEX]
+        last = (nE - 1).clamp(0, ds.E - 1).long()
+        annot = sj_out.gather(1, (last * 5 + ds.SJ_ANNOT)[:, None])[:, 0]
+        grew = (nE > 0) & (sc_out[:, ds.C_NEX] > nE)
+        found.append(int((ok & grew & (annot == 1)).sum()))
+        return ok
     gate = be.DEVICE_GROW_MIN_RECORDS
     be.DEVICE_GROW_MIN_RECORDS = {s: 0 for _, s, _ in be.LEVELS}  # every level
     try:
-        with Spy((ds, "_sjdb_find_dev", find)):
+        with Spy((ds, "stitch_chunk", chunk)):
             for gold, idx, flags, files in ANNOT_GOLDENS:
                 out = os.path.join(WORK, "annot_" + gold) + "/"
                 shutil.rmtree(out, ignore_errors=True)
@@ -1230,7 +1430,7 @@ def annot_goldens(fetch):
                                              "found an annotated junction")
                 log(f"annot: golden {gold}: {', '.join(files)} identical; "
                     f"{fetch.LAUNCHES - n0} fetch_window launches, "
-                    f"{len(found)} junction lookups on the card, "
+                    f"{len(found)} grow chunks on the card, "
                     f"{sum(found)} lanes found an annotated junction, "
                     f"{time.time() - t0:.2f} s")
     finally:
@@ -1344,9 +1544,7 @@ def annot_scale(torch, np, fetch, tile_fetch, idx, data):
 
     pipeline.TIMING = True
     pipeline.TIMERS.clear()
-    fetch.LAUNCHES = 0                       # counts of this slice's main path
-    fetch.ROWS_LAUNCHES = 0
-    tile_fetch.LAUNCHES = 0
+    reset_launches(fetch, tile_fetch)       # counts of this slice's main path
     t0 = time.time()
     try:
         with Spy((run, "_run_mapping", mapping),
@@ -1358,9 +1556,7 @@ def annot_scale(torch, np, fetch, tile_fetch, idx, data):
     finally:
         pipeline.TIMING = False
     wall = time.time() - t0
-    launches = {"fetch_window": fetch.LAUNCHES,
-                "fetch_rows": fetch.ROWS_LAUNCHES,
-                "tile_fetch": tile_fetch.LAUNCHES}
+    launches = main_launches(fetch, tile_fetch)
     t = pipeline.TIMERS
     log(f"annot: the annotation {gtf}: {ANNOT_GENES} synthetic genes of "
         f"{ANNOT_EXONS} exons and the 3 planted genes, {n_sj} distinct "
@@ -1629,9 +1825,7 @@ def fusion_scale(torch, np, fetch, tile_fetch, idx, data):
     ds.GROW_STATS.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fetch.LAUNCHES = 0                       # counts of this slice's main path
-    fetch.ROWS_LAUNCHES = 0
-    tile_fetch.LAUNCHES = 0
+    reset_launches(fetch, tile_fetch)       # counts of this slice's main path
     t0 = time.time()
     try:
         with Spy((chimeric, "detect_chimeric_mult", timed("chimeric")),
@@ -1642,9 +1836,7 @@ def fusion_scale(torch, np, fetch, tile_fetch, idx, data):
     finally:
         pipeline.TIMING = False
     wall = time.time() - t0
-    launches = {"fetch_window": fetch.LAUNCHES,
-                "fetch_rows": fetch.ROWS_LAUNCHES,
-                "tile_fetch": tile_fetch.LAUNCHES}
+    launches = main_launches(fetch, tile_fetch)
     peak = torch.cuda.max_memory_allocated()
     t = pipeline.TIMERS
     rows = junction_rows(outs["scale"] + "Chimeric.out.junction")
@@ -1712,6 +1904,56 @@ def fusion_scale(torch, np, fetch, tile_fetch, idx, data):
         "junction rows)")
     return launches
 
+
+
+def pe_chunks(torch, np, fetch, tile_fetch, data):
+    """phase 6 (c): the generator's 2 x 100 pairs (reads_pe_1 / _2.fastq,
+    30 % across its planted introns) on phase 5's saved pass-2 index with
+    the default flags and the device stitch engine forced on every level,
+    so that it runs the mate join and the annotated junctions: pairs/s, one
+    stitch_chunk launch per grow iteration, and the batch's chunks replayed against the plain version
+    (chunk_replay).  Returns (the run's launches, the replay)"""
+    import shutil
+    from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    from star_tpu_torch.ops import pipeline
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    idx = ANNOT_OUT + "_STARgenome"
+    out = os.path.join(WORK, "pe_annot") + "/"
+    dump = os.path.join(WORK, "dump_pe")
+    for x in (out, dump):
+        shutil.rmtree(x, ignore_errors=True)
+    gi = GenomeIndex.load(idx)
+    P = Parameters(["--genomeDir", idx, "--readFilesIn",
+                    *(os.path.join(data, f"reads_pe_{m}.fastq")
+                      for m in (1, 2)),
+                    "--outFileNamePrefix", out, "--outSAMtype", "None",
+                    "--tpuBatchSize", str(N_READS)])
+    reset_counts(ds, be, pipeline)
+    reset_launches(fetch, tile_fetch)       # counts of this slice's main path
+    os.environ["STAR_TPU_DUMP_STITCH"] = dump
+    gate = be.DEVICE_GROW_MIN_RECORDS
+    be.DEVICE_GROW_MIN_RECORDS = {s: 0 for _, s, _ in be.LEVELS}  # every level
+    t0 = time.time()
+    try:
+        stats = align_reads(P, gi=gi, device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["STAR_TPU_DUMP_STITCH"]
+        be.DEVICE_GROW_MIN_RECORDS = gate
+    wall = time.time() - t0
+    launches = main_launches(fetch, tile_fetch)
+    chunks = check_chunk_launches(ds, be, launches, "pe")
+    log(f"pe: {stats.read_n} pairs on the annotated index ({gi.sjdb_n} "
+        f"junctions) in {wall:.2f} s = {stats.read_n / wall:.1f} pairs/s "
+        f"(no output); levels {levels(be)}; stitch_chunk "
+        f"{launches['stitch_chunk']} (per level: launches, grow iterations "
+        f"{chunks}), fetch_window {launches['fetch_window']}")
+    d = load_dump(gi, P, os.path.join(dump, sorted(os.listdir(dump))[0]))
+    return launches, chunk_replay(torch, np, gi, P, d, "pe",
+                                  need=("joins", "found", "mates"))
 
 
 # ---- phase 7: STARsolo
@@ -2208,13 +2450,14 @@ def solo_scale(torch, np, fetch, tile_fetch, data):
         ed["called"] += int(out.sum() - a[1].sum())
         return out
 
+    dump = os.path.join(WORK, "dump_solo")
+    shutil.rmtree(dump, ignore_errors=True)
+    os.environ["STAR_TPU_DUMP_STITCH"] = dump
     pipeline.TIMING = True
     reset_counts(ds, be, pipeline)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fetch.LAUNCHES = 0                       # counts of this slice's main path
-    fetch.ROWS_LAUNCHES = 0
-    tile_fetch.LAUNCHES = 0
+    reset_launches(fetch, tile_fetch)       # counts of this slice's main path
     mc0 = mc_null.LAUNCHES
     t0 = time.time()
     try:
@@ -2224,10 +2467,9 @@ def solo_scale(torch, np, fetch, tile_fetch, data):
         torch.cuda.synchronize()
     finally:
         pipeline.TIMING = False
+        del os.environ["STAR_TPU_DUMP_STITCH"]
     wall = time.time() - t0
-    launches = {"fetch_window": fetch.LAUNCHES,
-                "fetch_rows": fetch.ROWS_LAUNCHES,
-                "tile_fetch": tile_fetch.LAUNCHES,
+    launches = {**main_launches(fetch, tile_fetch),
                 "mc_null": mc_null.LAUNCHES - mc0}
     peak = torch.cuda.max_memory_allocated()
     t = pipeline.TIMERS
@@ -2248,6 +2490,9 @@ def solo_scale(torch, np, fetch, tile_fetch, data):
         f"Monte-Carlo null (solo_mc) {t.get('solo_mc', 0.0):.3f} s")
     grow_report(ds, be, pipeline, "solo")
     check_card_levels(ds, be, "solo")
+    chunks = check_chunk_launches(ds, be, launches, "solo")
+    log(f"solo: stitch_chunk {launches['stitch_chunk']} (per level: "
+        f"launches, grow iterations {chunks})")
     sums = {ft: summary(outs["scale"] + f"Solo.out/{ft}/Summary.csv")
             for ft in ("Gene", "GeneFull")}
     nnz = {ft: mtx_entries(outs["scale"] + f"Solo.out/{ft}/raw/matrix.mtx")
@@ -2272,6 +2517,12 @@ def solo_scale(torch, np, fetch, tile_fetch, data):
                              f"{ed['sims']} EmptyDrops simulations in "
                              f"{launches['mc_null']} kernel launches")
     launches["mc_kernel"] = mc_kernel(torch, mc_null, ed["inputs"])
+    # the first batch's grow chunks, each against the plain version
+    P = argv("scale")
+    d = load_dump(gi, P, os.path.join(dump, sorted(os.listdir(dump))[0]))
+    launches["chunks"] = chunk_replay(torch, np, gi, P, d, "solo",
+                                      need=("joins", "found"))
+    del d
 
     # ---- the first reads on the card (engine forced) and with numpy
     sub = ["--readMapNumber", str(N_SOLO_ORACLE)]
@@ -2442,9 +2693,7 @@ def sharded_scale(torch, np, fetch, tile_fetch, data, full):
     reset_counts(ds, be, pipeline)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fetch.LAUNCHES = 0                           # counts of the main path
-    fetch.ROWS_LAUNCHES = 0
-    tile_fetch.LAUNCHES = 0
+    reset_launches(fetch, tile_fetch)       # counts of the main path
     t0 = time.time()
     try:
         stats = align_reads(P, gi=gi, device=DEVICE, mesh=mesh)
@@ -2452,9 +2701,7 @@ def sharded_scale(torch, np, fetch, tile_fetch, data, full):
     finally:
         pipeline.TIMING = False
     wall = time.time() - t0
-    launches = {"fetch_window": fetch.LAUNCHES,
-                "fetch_rows": fetch.ROWS_LAUNCHES,
-                "tile_fetch": tile_fetch.LAUNCHES}
+    launches = main_launches(fetch, tile_fetch)
     peak = torch.cuda.max_memory_allocated()
     sl = stitch_launches(ds)
     seed = launches["fetch_window"] - sum(sl.values())
@@ -2619,7 +2866,7 @@ def main():
     oracle = None
     try:
         t0 = time.time()
-        sources = ["fetch_rows", "emptydrops"]
+        sources = ["fetch_rows", "emptydrops", "stitch_chunk"]
         _build.build_all(sources)
         log(f"build: {', '.join(k + '.cu' for k in sources)} in "
             f"{time.time() - t0:.1f} s")
@@ -2651,6 +2898,8 @@ def main():
         fusion = fusion_scale(torch, np, fetch, tile_fetch,
                               os.path.join(WORK, "idx"), data)
         phase_done("fusion")
+        pe, pe_chunk = pe_chunks(torch, np, fetch, tile_fetch, data)
+        phase_done("pe chunks")
         solo_goldens(fetch)
         solo = solo_scale(torch, np, fetch, tile_fetch, data)
         phase_done("solo")
@@ -2661,8 +2910,8 @@ def main():
         phase_done("sharded")
         annot_oracle(oracle)
         phase_done("annot's numpy-engine check")
-        launches = {k: v + annot[k] + fusion[k] + solo[k] + sharded[k]
-                    for k, v in launches.items()}
+        launches = {k: v + annot[k] + fusion[k] + pe[k] + solo[k]
+                    + sharded[k] for k, v in launches.items()}
         for k in kern:
             k["launches"] = launches[k["name"]]
         ph = replay["fetches"]
@@ -2680,6 +2929,20 @@ def main():
             "bound_by": "bytes", "phases": {**ph,
                                             "sharded_seed": sharded_seed},
             "widths_262144_starts": widths})
+        # the chunks of phase 4's batch (100-base reads, no annotation), of
+        # the pairs on the annotated index (phase 6) and of the 10x run's
+        # first batch (91-base reads, annotated; phase 7), each launched
+        # again alone
+        ch = {"se100": replay["chunks"], "pe2x100_sjdb": pe_chunk,
+              "se91_sjdb_10x": solo["chunks"]}
+        kern.append({
+            "name": "stitch_chunk", "route": "cuda",
+            "source": "star_tpu_torch/ops/csrc/stitch_chunk.cu",
+            "replaces": None, "launches": launches["stitch_chunk"],
+            "bound_by": "bytes",
+            **{k: sum(r[k] for c in ch.values() for r in c.values())
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "replays": ch})
         kern.append({
             "name": "mc_null", "route": "cuda",
             "source": "star_tpu_torch/ops/csrc/emptydrops.cu",

@@ -13,9 +13,14 @@ Design:
   * Lane state lives on the device as three packed int32 row matrices (SCAL,
     EX and SJ blocks).  The active lanes form one contiguous queue; each
     step stitches seed s onto every active lane in chunks of at most A_CAP
-    lanes (chunk_lanes: fewer for long reads), appends the chains that
-    grew, and at the step's end compacts the queue and moves completed
-    chains to an append-only retired buffer.
+    lanes (chunk_lanes), appends the chains that grew, and at the step's
+    end compacts the queue and moves completed chains to an append-only
+    retired buffer.
+  * A chunk (stitch_chunk) is on CUDA tensors one launch of the
+    hand-written kernel ops/csrc/stitch_chunk.cu, one warp a lane, which
+    reads its regions from the tables itself; on CPU tensors it is the
+    plain version, _stitch_chunk: masked full-width tensor code, the
+    kernel's oracle.
   * The step/chunk loop runs on the host (a lax.while_loop in the JAX
     package): it waits for the device once per chunk (how many chains
     grew) and once more at each step's end (how many lanes stay and retire).
@@ -28,13 +33,14 @@ Design:
     selected rows together, so one download carries only the lanes the host
     assembly reads.  Paired-end runs download every retired lane with its
     accept flag, because the host's PE-overlap check runs after the grow.
-  * The window layer: every per-lane region (the read region, two genome
-    regions, the u16 mismatch-cap table) and every lane-row move is one
-    byte window of fetch.fetch_window, which on a CUDA tensor is the
-    hand-written kernel ops/csrc/fetch_rows.cu and on a CPU tensor its plain
-    version.  The JAX engine fetches aligned 2 KiB rows and cuts the window
-    out of them (a TPU DMA constraint); its gather layer (plain per-window
-    gathers, what star_tpu runs off the TPU) is not ported.
+  * The window layer: every lane-row move, the finalize's regions and, in
+    the plain chunk, every per-lane region (the read region, two genome
+    regions, the u16 mismatch-cap table) is one byte window of
+    fetch.fetch_window, which on a CUDA tensor is the hand-written kernel
+    ops/csrc/fetch_rows.cu and on a CPU tensor its plain version.  The
+    JAX engine fetches aligned 2 KiB rows and cuts the window out of them
+    (a TPU DMA constraint); its gather layer (plain per-window gathers,
+    what star_tpu runs off the TPU) is not ported.
   * Genome positions are int32: the engine is gated on n_genome < 2^30.
   * The reference's float mismatch caps (outFilterMismatchNoverLmax * len
     in double) are exact host-precomputed integer floor/ceil tables, and
@@ -62,6 +68,7 @@ engine's here.
 from __future__ import annotations
 
 import collections
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -81,9 +88,11 @@ I32 = torch.int32
 # counters of the process, keyed (window cap W of the level, name): grow
 # "calls", "iterations" (chunks), "steps"; "retired" chains, "accepted" by
 # the finalize, "downloaded" lanes, reads classified "over" the multimap
-# limit; and the fetch kernel's launches of the grow ("fetch_launches"), the
-# finalize ("finalize_launches") and the pack ("pack_launches")
+# limit; the chunk kernel's launches ("chunk_launches"); and the fetch
+# kernel's launches of the grow ("fetch_launches"), the finalize
+# ("finalize_launches") and the pack ("pack_launches")
 GROW_STATS = collections.Counter()
+LAUNCHES = 0       # stitch_chunk kernel launches (CUDA tensors only)
 
 
 def region_spans(Lpad: int):
@@ -846,6 +855,157 @@ def _stitch_chunk(cfg: StitchConfig, Gf, n_g, RSf, lmax,
     return first | acc
 
 
+def _stitch_chunk_plain(cfg: StitchConfig, Gf, n_g, RSf, lmax, floor16f,
+                        ceil_tab, ntab, sjdb, sc, ex, sj, rows, pm, fb,
+                        s: int, out):
+    """the plain version of stitch_chunk: the chunk's prologue (each lane's
+    seed row and whether its pair may stitch seed s), then _stitch_chunk"""
+    prow = sc[:, C_PROW].long().clamp(0, pm.shape[0] - 1)
+    fb_l = fb[sc[:, C_PB].long().clamp(0, fb.shape[0] - 1)] > 0
+    # the initial queue holds one lane per (possibly already exhausted)
+    # pair; only pairs with seed s may stitch
+    act = ~fb_l & (s < sc[:, C_WAN])
+    seed = rows[(pm[:, 0][prow] + s).long().clamp(0, rows.shape[0] - 1)]
+    return _stitch_chunk(cfg, Gf, n_g, RSf, lmax, floor16f, ceil_tab, ntab,
+                         sjdb, sc, ex, sj, seed, s, out) & act
+
+
+# the int32 scalars of csrc/stitch_chunk.cu's Cfg, in its order; _lib holds
+# this against the field names the library gives
+KERNEL_CONFIG = (
+    "Lpad", "has_pe", "has_sjdb", "ext_end0", "ext_end1", "ins_flush_right",
+    "intron_min", "intron_max", "mates_gap_max", "protrude_max", "score_gap",
+    "score_gap_noncan", "score_gap_gcag", "score_gap_atac", "score_del_open",
+    "score_del_base", "score_ins_open", "score_ins_base", "sjdb_score",
+    "stitch_sj_shift", "sjmm0", "sjmm1", "sjmm2", "sjmm3", "n_g", "lmax",
+    "ntab")
+
+
+def _kernel_config(cfg: StitchConfig, n_g: int, lmax: int, ntab: int):
+    """the values of KERNEL_CONFIG, in its order"""
+    v = dict(vars(cfg), ext_end0=cfg.ends_ext[0][1],
+             ext_end1=cfg.ends_ext[1][1], n_g=n_g, lmax=lmax, ntab=ntab,
+             **{f"sjmm{i}": m for i, m in enumerate(cfg.sjmm)})
+    return [int(v[f]) for f in KERNEL_CONFIG]
+
+
+def _check_chunk(cfg, Gf, RSf, floor16f, ceil_tab, ntab, sjdb, sc, ex, sj,
+                 rows, pm, fb, out):
+    """the kernel's inputs: one device, int32 rows and tables of the
+    engine's shapes, contiguous; raises ValueError on anything else"""
+    def want(name, t, dtype, ndim, cols=None):
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype \
+                or t.dim() != ndim or not t.is_contiguous() \
+                or t.device != Gf.device \
+                or (cols is not None and t.shape[1] != cols):
+            raise ValueError(f"stitch_chunk: {name} must be a contiguous "
+                             f"{ndim}-D {dtype} tensor"
+                             + (f" of {cols} columns" if cols else "")
+                             + f" on {Gf.device}")
+    for name, t in (("Gf", Gf), ("RSf", RSf), ("floor16f", floor16f)):
+        want(name, t, torch.int8, 1)
+    want("ceil_tab", ceil_tab, I32, 1)
+    if ceil_tab.numel() < ntab:
+        raise ValueError("stitch_chunk: ceil_tab is shorter than ntab")
+    if len(sjdb) != 7:
+        raise ValueError("stitch_chunk: sjdb must hold the 7 junction tables")
+    for t in sjdb:
+        want("an sjdb table", t, I32, 1)
+        if t.numel() != sjdb[0].numel() or t.numel() < 1:
+            raise ValueError("stitch_chunk: the sjdb tables differ in length")
+    n = sc.shape[0] if sc.dim() == 2 else -1
+    for name, t, cols in (("sc", sc, NSCAL), ("ex", ex, NEXB),
+                          ("sj", sj, NSJB), ("sc out", out[0], NSCAL),
+                          ("ex out", out[1], NEXB), ("sj out", out[2], NSJB)):
+        want(name, t, I32, 2, cols)
+        if t.shape[0] != n:
+            raise ValueError(f"stitch_chunk: {name} holds {t.shape[0]} "
+                             f"lanes, sc {n}")
+    want("rows", rows, I32, 2, 8)
+    want("pm", pm, I32, 2, 8)
+    want("fb", fb, I32, 1)
+    if min(rows.shape[0], pm.shape[0], fb.shape[0]) < 1:
+        raise ValueError("stitch_chunk: rows, pm and fb must not be empty")
+    if region_spans(cfg.Lpad)[1] > SPAN_MAX:
+        raise ValueError(f"stitch_chunk: Lpad {cfg.Lpad} needs regions wider "
+                         f"than the tables' tail padding ({SPAN_MAX})")
+
+
+def _stitch_chunk_cuda(cfg, Gf, n_g, RSf, lmax, floor16f, ceil_tab, ntab,
+                       sjdb, sc, ex, sj, rows, pm, fb, s, out):
+    global LAUNCHES
+    _check_chunk(cfg, Gf, RSf, floor16f, ceil_tab, ntab, sjdb, sc, ex, sj,
+                 rows, pm, fb, out)
+    lib = _lib()
+    vals = _kernel_config(cfg, n_g, lmax, ntab)
+    conf = (ctypes.c_int32 * len(vals))(*vals)
+    sjt = (ctypes.c_void_p * 7)(*[t.data_ptr() for t in sjdb])
+    n = sc.shape[0]
+    ok = torch.empty(n, dtype=torch.bool, device=Gf.device)
+    if n:
+        rc = lib.stitch_chunk_launch(
+            conf, Gf.data_ptr(), Gf.numel(), RSf.data_ptr(), RSf.numel(),
+            floor16f.data_ptr(), floor16f.numel(), ceil_tab.data_ptr(), sjt,
+            sjdb[0].numel(), sc.data_ptr(), ex.data_ptr(), sj.data_ptr(),
+            rows.data_ptr(), rows.shape[0], pm.data_ptr(), pm.shape[0],
+            fb.data_ptr(), fb.shape[0], out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), ok.data_ptr(), n, int(s),
+            torch.cuda.current_stream(Gf.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError("stitch_chunk kernel launch failed: "
+                               + lib.stitch_chunk_error_string(rc).decode())
+        LAUNCHES += 1
+    return ok
+
+
+def stitch_chunk(cfg: StitchConfig, Gf, n_g, RSf, lmax, floor16f, ceil_tab,
+                 ntab, sjdb, sc, ex, sj, rows, pm, fb, s: int, out):
+    """one chunk of step s of the grow: the lanes' rows sc [A, NSCAL], ex
+    [A, NEXB], sj [A, NSJB] with seed s of their pair applied are written
+    into out = (sc, ex, sj) views; returns ok [A] bool, the lanes that
+    accept the seed and whose pair may stitch it.  rows [NW, 8]: the seed
+    rows; pm [NP, 8]: the pair table (column 0 the pair's first seed row);
+    fb [B] int32: the reads' fallback flags.  On CUDA tensors one launch of
+    the hand-written kernel csrc/stitch_chunk.cu (LAUNCHES counts them); on
+    CPU tensors its plain version, _stitch_chunk_plain."""
+    if Gf.is_cuda:
+        return _stitch_chunk_cuda(cfg, Gf, n_g, RSf, lmax, floor16f,
+                                  ceil_tab, ntab, sjdb, sc, ex, sj, rows, pm,
+                                  fb, s, out)
+    return _stitch_chunk_plain(cfg, Gf, n_g, RSf, lmax, floor16f, ceil_tab,
+                               ntab, sjdb, sc, ex, sj, rows, pm, fb, s, out)
+
+
+_LIB = None
+
+
+def check_config_fields(lib):
+    """raise unless the library's Cfg fields are KERNEL_CONFIG, in order"""
+    lib.stitch_chunk_config_fields.restype = ctypes.c_char_p
+    lib.stitch_chunk_config_fields.argtypes = []
+    got = tuple(lib.stitch_chunk_config_fields().decode().split())
+    if got != KERNEL_CONFIG:
+        raise RuntimeError(f"csrc/stitch_chunk.cu's Cfg fields {got} are not "
+                           f"device_stitch.KERNEL_CONFIG {KERNEL_CONFIG}")
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from . import _build
+        lib = _build.load("stitch_chunk")
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        check_config_fields(lib)
+        lib.stitch_chunk_launch.restype = ctypes.c_int
+        lib.stitch_chunk_launch.argtypes = [
+            p, p, i64, p, i64, p, i64, p, p, i64, p, p, p, p, i64, p, i64,
+            p, i64, p, p, p, p, i64, i64, p]
+        lib.stitch_chunk_error_string.restype = ctypes.c_char_p
+        lib.stitch_chunk_error_string.argtypes = [ctypes.c_int]
+        _LIB = lib
+    return _LIB
+
+
 # --------------------------------------------------------------------------
 # the two-queue grow engine
 # --------------------------------------------------------------------------
@@ -888,7 +1048,6 @@ def make_grow_engine2(cfg: StitchConfig, AMAX: int, RMAX: int, A_CAP: int,
 
     def grow(Gf, RSf, rows, pm, floor16f, ceil_tab, sjdb, fb0, s_hi):
         dev = Gf.device
-        NW = rows.shape[0]
         A_SC, A_SCt = _alloc_rows(ATOT, NSCAL, dev)
         A_EX, A_EXt = _alloc_rows(ATOT, NEXB, dev)
         A_SJ, A_SJt = _alloc_rows(ATOT, NSJB, dev)
@@ -911,24 +1070,16 @@ def make_grow_engine2(cfg: StitchConfig, AMAX: int, RMAX: int, A_CAP: int,
         cnt = (pm[:, 1] > 0).to(I32)
         fb = fb0.to(I32).clone()
         pb_all = pm[:, 2].long().clamp(0, B - 1)
-        waoff = pm[:, 0]
         s = c = overflow = it = 0
 
         while s < s_hi and n_act > 0 and overflow == 0 and it < IT_MAX:
             # ---- one chunk of the current step
             base = c * A_CAP
             n = min(A_CAP, n_act - base)
-            sc = A_SC[base:base + n]
-            prow = sc[:, C_PROW].long().clamp(0, NP - 1)
-            fb_l = fb[sc[:, C_PB].long().clamp(0, B - 1)] > 0
-            # the initial queue holds one lane per (possibly already
-            # exhausted) pair; only pairs with seed s may stitch
-            act = ~fb_l & (s < sc[:, C_WAN])
-            seed = rows[(waoff[prow] + s).long().clamp(0, NW - 1)]
-            ok = _stitch_chunk(cfg, Gf, n_g, RSf, lmax, floor16f,
-                               ceil_tab, ntab, sjdb, sc, A_EX[base:base + n],
-                               A_SJ[base:base + n], seed, s,
-                               (S_SC[:n], S_EX[:n], S_SJ[:n])) & act
+            ok = stitch_chunk(cfg, Gf, n_g, RSf, lmax, floor16f, ceil_tab,
+                              ntab, sjdb, A_SC[base:base + n],
+                              A_EX[base:base + n], A_SJ[base:base + n], rows,
+                              pm, fb, s, (S_SC[:n], S_EX[:n], S_SJ[:n]))
             aidx = ok.nonzero()[:, 0]
             n_new = aidx.numel()
             if n_new:
@@ -1358,20 +1509,23 @@ def device_tables(gi, device):
 A_HARD = 1 << 21
 R_HARD = 1 << 23
 # bytes of one [lanes, 2 * Lpad + 5] int32 scan tensor of a W512 grow chunk
+# of the plain version
 CHUNK_SCAN_BYTES = 1 << 26
 
 
-def chunk_lanes(s_max: int, Lpad: int) -> int:
-    """A_CAP, the lanes one grow chunk stitches at once: 2^14 at level 0;
-    at the W512 level the largest power of two from 2^10 to 2^16 whose scan
-    tensors fit CHUNK_SCAN_BYTES: 2^16 lanes for reads up to 123 bases,
-    2^15 up to 251 (2 x 100 pairs with their spacer).  A group's largest
-    chunk holds min(A_CAP, the most lanes any of its steps holds), so its
-    memory follows the data up to a full chunk; the byte bound keeps that
-    full chunk small for long reads.  The cost is known: half the lanes is
-    twice the chunks, each a host loop of launches and one wait (PERF.md)."""
+def chunk_lanes(s_max: int, Lpad: int, device) -> int:
+    """A_CAP, the lanes one grow chunk stitches at once: 2^14 at level 0.
+    At the W512 level on a CUDA device 2^16 at every read length: the chunk
+    kernel holds no per-column tensors, so a chunk's memory is its fixed
+    output rows (2^16 x 896 B).  On CPU tensors the plain version's
+    [lanes, 2 * Lpad + 5] int32 scans bound it: the largest power of two
+    from 2^10 to 2^16 whose scan fits CHUNK_SCAN_BYTES, 2^16 lanes for
+    reads up to 123 bases, 2^15 up to 251 (2 x 100 pairs with their
+    spacer)."""
     if s_max <= 16:
         return 1 << 14
+    if torch.device(device).type == "cuda":
+        return 1 << 16
     fit = CHUNK_SCAN_BYTES // (4 * (2 * Lpad + 5))
     return 1 << min(16, max(fit.bit_length() - 1, 10))
 
@@ -1551,7 +1705,7 @@ def _run_group(ctx: _GrowCtx, a: int, b_: int):
     # sized from the group; an overflow doubles them
     AMAX = min(_round_up(2 * NPg + NWg // 2, 1 << 14), A_HARD)
     RMAX = min(_round_up(NPg + 2 * NWg, 1 << 16), R_HARD)
-    A_CAP = chunk_lanes(ctx.s_max, ctx.cfg.Lpad)
+    A_CAP = chunk_lanes(ctx.s_max, ctx.cfg.Lpad, dev)
 
     put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     fb0 = st.fallback.astype(np.int32)
@@ -1562,12 +1716,13 @@ def _run_group(ctx: _GrowCtx, a: int, b_: int):
     while True:
         eng = make_grow_engine2(ctx.cfg, AMAX, RMAX, A_CAP, NPg, ctx.B,
                                 ctx.lmax, int(ctx.gi.n_genome), ctx.ntab)
-        n0 = fetch.LAUNCHES
+        n0, c0 = fetch.LAUNCHES, LAUNCHES
         with _tick(f"dev_grow_W{W}"):
             SCAL, EXB, SJB, n_lanes, fb, cnt, overflow, n_iter, n_steps, \
                 tabs = eng(ctx.Gf, ctx.rs_dev, rows_dev, pm_dev, ctx.ft_dev,
                            ctx.ct_dev, ctx.sjt, fb_dev, int(wan[a:b_].max()))
         GROW_STATS[W, "fetch_launches"] += fetch.LAUNCHES - n0
+        GROW_STATS[W, "chunk_launches"] += LAUNCHES - c0
         GROW_STATS[W, "iterations"] += n_iter
         GROW_STATS[W, "steps"] += n_steps
         if overflow == 0:

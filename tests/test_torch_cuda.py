@@ -1,6 +1,6 @@
 """Tests of star_tpu_torch that need an NVIDIA GPU: the hand-written CUDA
-kernels (fetch_window, fetch_rows, tile_fetch) against their plain PyTorch
-versions, the MMP search on the card
+kernels (fetch_window, fetch_rows, tile_fetch, the grow's stitch_chunk)
+against their plain PyTorch versions, the MMP search on the card
 against the host oracle, the device grow on the card against the numpy
 grow, the device finalize, select and pack on the card against the same
 engine on CPU tensors, and two-pass mapping, GeneCounts and BAM output on the
@@ -203,10 +203,11 @@ def test_device_grow_on_card_matches_numpy(cuda, tmp_path, monkeypatch, case,
         G = gi.G.view(np.uint8)
         want = be.grow_chains(gi, P, G, RS, st_np, ws, nmm, Lpad,
                               chain_cap=chain_cap)
-        n0 = fetch.LAUNCHES
+        n0, c0 = fetch.LAUNCHES, ds.LAUNCHES
         got = real(gi, P, copy.deepcopy(st), ws, RS, nmm, Lpad, s_max,
                    chain_cap, device)[0]
         assert device.type == "cuda" and fetch.LAUNCHES > n0
+        assert ds.LAUNCHES > c0
         for k in be._lane_fields():
             assert np.array_equal(getattr(got, k), getattr(want, k)), k
         # grow + finalize (+ select on se) on the card, as the run calls it,
@@ -242,6 +243,209 @@ def test_device_grow_on_card_matches_numpy(cuda, tmp_path, monkeypatch, case,
             return [l for l in f if not l.startswith("@")]
     assert body(prefix + "Aligned.out.sam") == \
         body(os.path.join(GOLD, case, "Aligned.out.sam"))
+
+
+SE_READS = ["reads_se.fastq"]
+PE_READS = ["reads_pe_1.fastq", "reads_pe_2.fastq"]
+# (case, index, reads, flags) of the chunk kernel's card test; "2x150" maps
+# a generated set of 2x150 pairs on its own index (Lpad 303), "edges" the
+# pe set with every chunk also launched with its seeds and positions moved
+# out to the table edges, and every other one extended to the end
+CHUNK_CASES = [
+    ("se", "genome_idx", SE_READS, []),
+    ("se_sjdb", "genome_idx_gtf", SE_READS, []),
+    ("se_flush_right", "genome_idx", SE_READS,
+     ["--alignInsertionFlush", "Right"]),
+    ("pe", "genome_idx", PE_READS, []),
+    ("pe_sjdb_flush_right", "genome_idx_gtf", PE_READS,
+     ["--alignInsertionFlush", "Right"]),
+    ("pe_end_to_end", "genome_idx", PE_READS, ["--alignEndsType", "EndToEnd"]),
+    ("pe_mates_gap_mm_cap", "genome_idx", PE_READS,
+     ["--alignMatesGapMax", "150", "--outFilterMismatchNoverLmax", "0.04"]),
+    ("2x150", None, PE_READS, []),
+    ("edges", "genome_idx_gtf", PE_READS, [])]
+
+
+def moved_to_edges(ds, rng, tabs, sc, rows):
+    """a chunk's inputs with its seeds moved by up to a few hundred bases,
+    some mates switched, and lanes whose last exon ends at (or beyond) the
+    genome's or the read table's edges: (tabs, sc, rows)"""
+    import dataclasses
+    cfg, n_g = tabs[0], tabs[2]
+    dev = sc.device
+    ri = lambda lo, hi, n: torch.from_numpy(
+        rng.integers(lo, hi, n)).int().to(dev)
+    rows = rows.clone()
+    nw = rows.shape[0]
+    rows[:, 0] += ri(-40, 40, nw)
+    rows[:, 1] += ri(-400, 400, nw)
+    rows[:, 2] = ri(1, cfg.Lpad, nw)
+    flip = torch.from_numpy(rng.random(nw) < 0.3).to(dev)
+    rows[flip, 3] = 1 - rows[flip, 3]
+    sc = sc.clone()
+    n = sc.shape[0]
+    tg = torch.tensor([-2000, -300, 5, n_g - 5, n_g + 300, n_g + 5000],
+                      dtype=torch.int32, device=dev)
+    pick = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    sc[pick, ds.C_TG2] = tg[ri(0, 6, n).long()][pick]
+    big = 2 * (tabs[3].numel() // tabs[4])
+    rv = torch.tensor([0, 1, big // 2 - 1, big], dtype=torch.int32,
+                      device=dev)
+    pick = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+    sc[pick, ds.C_ROW] = rv[ri(0, 4, n).long()][pick]
+    if rng.random() < 0.5:
+        cfg = dataclasses.replace(cfg, ends_ext=((True, True),) * 2)
+    return (cfg, *tabs[1:]), sc, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,idx,reads,flags", CHUNK_CASES,
+                         ids=[c[0] for c in CHUNK_CASES])
+def test_stitch_chunk_kernel_matches_plain(cuda, tmp_path, monkeypatch, case,
+                                           idx, reads, flags):
+    """every grow chunk of a mapping run on the card (the device engine
+    forced on every level) launched once through the kernel and held
+    against the plain version on the same CUDA tensors: the rows it writes
+    (sc, ex, sj) and ok byte for byte; one launch per chunk, and the
+    grow's chunk_launches equal to its iterations"""
+    import subprocess
+    import sys
+    from star_tpu_torch.genome.index import GenomeIndex
+    from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
+    from star_tpu_torch.params import Parameters
+    from star_tpu_torch.run import align_reads
+    monkeypatch.delenv("STAR_TPU_DEVICE_STITCH", raising=False)
+    monkeypatch.setattr(be, "DEVICE_GROW_MIN_RECORDS",
+                        {s_max: 0 for _, s_max, _ in be.LEVELS})
+    data = os.path.join(ROOT, "tests", "data", "small")
+    if case == "2x150":
+        data = str(tmp_path / "data")
+        subprocess.run([sys.executable,
+                        os.path.join(ROOT, "tools", "make_test_data.py"),
+                        "--out", data, "--read-len", "150", "--seed", "5",
+                        "--n-reads", "120"], check=True,
+                       stdout=subprocess.DEVNULL)
+        gi = GenomeIndex.generate([os.path.join(data, "genome.fa")],
+                                  sa_index_nbases=7)
+        idx = str(tmp_path / "idx")
+        gi.save(idx)
+    else:
+        idx = os.path.join(GOLD, idx)
+        gi = GenomeIndex.load(idx)
+    rng = np.random.default_rng(17)
+    real = ds.stitch_chunk
+    seen = {"chunks": 0, "lanes": 0, "ok": 0, "Lpad": set(), "edges": 0}
+
+    def check(tabs, sc, ex, sj, rows, pm, fb, s):
+        want = tuple(torch.full_like(t, -7) for t in (sc, ex, sj))
+        ok_w = ds._stitch_chunk_plain(*tabs, sc, ex, sj, rows, pm, fb, s,
+                                      want)
+        got = tuple(torch.full_like(t, -9) for t in (sc, ex, sj))
+        n0 = ds.LAUNCHES
+        ok = real(*tabs, sc, ex, sj, rows, pm, fb, s, got)
+        assert ds.LAUNCHES == n0 + 1
+        for name, g, w in zip(("sc", "ex", "sj"), got, want):
+            bad = (g != w).any(dim=1).nonzero()[:, 0]
+            assert bad.numel() == 0, (case, name, s, bad[:5].tolist())
+        assert torch.equal(ok, ok_w), (case, s)
+        return int(ok.sum())
+
+    def spy(*a):
+        tabs, (sc, ex, sj, rows, pm, fb, s, out) = a[:9], a[9:]
+        assert sc.is_cuda
+        # the checks' launches are not the grow's
+        n_main = ds.LAUNCHES
+        seen["ok"] += check(tabs, sc, ex, sj, rows, pm, fb, s)
+        if case == "edges":
+            t2, sc2, rows2 = moved_to_edges(ds, rng, tabs, sc, rows)
+            check(t2, sc2, ex, sj, rows2, pm, fb, s)
+            seen["edges"] += 1
+        ds.LAUNCHES = n_main
+        seen["chunks"] += 1
+        seen["lanes"] += sc.shape[0]
+        seen["Lpad"].add(tabs[0].Lpad)
+        n0 = ds.LAUNCHES
+        ok = real(*a)
+        assert ds.LAUNCHES == n0 + 1
+        return ok
+
+    monkeypatch.setattr(ds, "stitch_chunk", spy)
+    ds.GROW_STATS.clear()
+    P = Parameters(["--genomeDir", idx, "--readFilesIn",
+                    *[os.path.join(data, r) for r in reads],
+                    "--outFileNamePrefix", str(tmp_path) + "/", *flags])
+    align_reads(P, gi=gi, device=cuda)
+    torch.cuda.synchronize()
+    gs = ds.GROW_STATS
+    it = sum(v for (w, k), v in gs.items() if k == "iterations")
+    launched = sum(v for (w, k), v in gs.items() if k == "chunk_launches")
+    assert seen["chunks"] > 0 and seen["ok"] > 0
+    assert launched == it == seen["chunks"]
+    assert case != "2x150" or seen["Lpad"] == {303}
+    assert case != "edges" or seen["edges"] == seen["chunks"]
+
+
+def synthetic_chunk(ds, device, n=64):
+    """a small valid set of the kernel's inputs: random genome and reads,
+    zero lanes (first exons) and one seed row"""
+    rng = np.random.default_rng(3)
+    Lpad, lmax, n_g = 52, 50, 5000
+    cfg = ds.StitchConfig(
+        Lpad=Lpad, s_max=50, chain_cap=64, has_pe=False, has_sjdb=False,
+        ends_ext=((False, False), (False, False)), ins_flush_right=False,
+        intron_min=21, intron_max=0, mates_gap_max=0, protrude_max=0,
+        score_gap=0, score_gap_noncan=-8, score_gap_gcag=-4,
+        score_gap_atac=-8, score_del_open=-2, score_del_base=-2,
+        score_ins_open=-2, score_ins_base=-2, sjdb_score=2,
+        stitch_sj_shift=1, sjmm=(0, 1, 0, 0))
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    Gf = put(ds._prep_table(rng.integers(0, 4, n_g).astype(np.int8)))
+    RSf = put(ds._prep_table(rng.integers(0, 4, 8 * lmax).astype(np.int8)))
+    ntab = 4 * (Lpad + 16)
+    ft, ct = ds.mm_cap_tables(0.3, ntab)
+    F = put(ds._prep_table(ft.astype("<u2")))
+    sjdb = (put(np.zeros(1, np.int32)),) * 7
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=device)
+    rows = i32(1, 8)
+    rows[0, :3] = torch.tensor([0, 100, 30])
+    sc = i32(n, ds.NSCAL)
+    sc[:, ds.C_WAN] = 1
+    tabs = (cfg, Gf, n_g, RSf, lmax, F, put(ct), ntab, sjdb)
+    return tabs, [sc, i32(n, ds.NEXB), i32(n, ds.NSJB), rows, i32(1, 8),
+                  i32(4)]
+
+
+@pytest.mark.cuda
+def test_stitch_chunk_kernel_refuses_bad_inputs(cuda):
+    from star_tpu_torch.ops import device_stitch as ds
+    tabs, ins = synthetic_chunk(ds, cuda)
+    out = lambda sc: tuple(torch.empty_like(t) for t in (sc, ins[1], ins[2]))
+    n0 = ds.LAUNCHES
+    ok = ds.stitch_chunk(*tabs, *ins, 0, out(ins[0]))
+    torch.cuda.synchronize()
+    assert ds.LAUNCHES == n0 + 1 and bool(ok.all())
+    sc, ex, sj, rows, pm, fb = ins
+
+    def refused(tabs_=tabs, ins_=ins, out_=None):
+        with pytest.raises(ValueError):
+            ds.stitch_chunk(*tabs_, *ins_, 0, out_ or out(ins_[0]))
+    refused(ins_=[sc.cpu(), *ins[1:]], out_=out(sc))     # another device
+    refused(ins_=[sc, ex, sj, rows, pm, fb.cpu()])       # another device
+    refused(ins_=[sc.long(), *ins[1:]], out_=out(sc))    # int64 rows
+    refused(tabs_=(tabs[0], tabs[1].view(torch.uint8), *tabs[2:]))
+    refused(ins_=[sc, ex[:, :50].contiguous(), *ins[2:]])   # 50 columns
+    refused(ins_=[sc, ex, sj[:-1], *ins[3:]])            # fewer lanes
+    refused(ins_=[sc, ex.t().contiguous().t(), *ins[2:]])   # not contiguous
+    refused(out_=(out(sc)[0][:-1], *out(sc)[1:]))        # output too short
+    refused(ins_=[sc, ex, sj, rows[:, :4].contiguous(), pm, fb])
+    refused(tabs_=(*tabs[:8], tabs[8][:6]))              # six sjdb tables
+    assert ds.LAUNCHES == n0 + 1
+    none = [t[:0] for t in (sc, ex, sj)]
+    assert ds.stitch_chunk(*tabs, *none, rows, pm, fb, 0,
+                           tuple(torch.empty_like(t) for t in none)
+                           ).shape == (0,)
+    assert ds.LAUNCHES == n0 + 1
 
 
 @pytest.mark.cuda
@@ -311,6 +515,7 @@ def test_annotation_outputs_on_card_match_goldens(cuda, tmp_path, monkeypatch,
     goldens (BAMs as record streams), each pass launching fetch_window"""
     from star_tpu_torch import run
     from star_tpu_torch.ops import batch_engine as be
+    from star_tpu_torch.ops import device_stitch as ds
     from star_tpu_torch.params import Parameters
     from star_tpu_torch.run import _run_mapping, align_reads
     monkeypatch.delenv("STAR_TPU_DEVICE_STITCH", raising=False)
@@ -319,9 +524,9 @@ def test_annotation_outputs_on_card_match_goldens(cuda, tmp_path, monkeypatch,
     launches = []
 
     def counted(*a, **k):
-        n0 = fetch.LAUNCHES
+        n0, c0 = fetch.LAUNCHES, ds.LAUNCHES
         out = _run_mapping(*a, **k)
-        launches.append(fetch.LAUNCHES - n0)
+        launches.append(min(fetch.LAUNCHES - n0, ds.LAUNCHES - c0))
         return out
     monkeypatch.setattr(run, "_run_mapping", counted)
     prefix = str(tmp_path) + "/"
@@ -398,6 +603,8 @@ def test_solo_on_card_matches_goldens(cuda, tmp_path, monkeypatch, case, gold,
     assert fetch.LAUNCHES > n0
     assert sum(v for (w, k), v in ds.GROW_STATS.items()
                if k == "fetch_launches") > 0
+    assert sum(v for (w, k), v in ds.GROW_STATS.items()
+               if k == "chunk_launches") > 0
     assert sum(v for (w, k), v in be.LEVEL_STATS.items() if k == "device") > 0
     assert solo_diff(prefix, os.path.join(TESTS, "golden", gold), files) == []
 
@@ -608,10 +815,11 @@ def test_transcriptome_bam_on_card_matches_host(cuda, tmp_path, monkeypatch,
     monkeypatch.delenv("STAR_TPU_DEVICE_STITCH", raising=False)
     monkeypatch.setattr(be, "DEVICE_GROW_MIN_RECORDS",
                         {s_max: 0 for _, s_max, _ in be.LEVELS})
+    from star_tpu_torch.ops import device_stitch as ds
     reads = helpers.changed_reads(case, str(tmp_path))
-    n0 = fetch.LAUNCHES
+    n0, c0 = fetch.LAUNCHES, ds.LAUNCHES
     dev = helpers.map_trsam(reads, str(tmp_path / "dev") + "/", cuda)
-    assert fetch.LAUNCHES > n0
+    assert fetch.LAUNCHES > n0 and ds.LAUNCHES > c0
     host = helpers.map_trsam(reads, str(tmp_path / "host") + "/", "cpu",
                              False)
     refs, recs = bam_records(dev)

@@ -4,8 +4,9 @@ genome regions need two fetch rows (equal to the numpy grow on every level),
 the fetch region's column mapping at every span, the iteration cap's
 overflow 2, and capacity overflows that retry and split without changing a
 byte, or raise once one read's chains exceed the hard caps.  A grow chunk's
-lanes (chunk_lanes) shrink for long reads and change no lane of the
-result."""
+lanes (chunk_lanes) shrink for long reads on CPU tensors, stay 2^16 at W512
+on a CUDA device, and change no lane of the result; on CPU tensors a chunk
+runs the plain version and launches no kernel."""
 import copy
 import dataclasses
 import os
@@ -68,15 +69,13 @@ def test_fetch_region_maps_every_column(span):
     assert ds._fetch_region(tabf, junk, span).shape == (2, span)
 
 
-@pytest.fixture(scope="module")
-def se_level0(tmp_path_factory):
-    """the se golden's level-0 grow inputs, from its dumped stitch inputs"""
-    tmp = tmp_path_factory.mktemp("se_level0")
+def _level0(tmp, reads):
+    """a golden's level-0 grow inputs, from its dumped stitch inputs"""
     mp = pytest.MonkeyPatch()
     mp.setenv("STAR_TPU_DEVICE_STITCH", "0")
     mp.setenv("STAR_TPU_DUMP_STITCH", str(tmp / "dump"))
     try:
-        _align_golden(tmp, "genome_idx", "se")
+        _align_golden(tmp, "genome_idx", reads)
     finally:
         mp.undo()
     with open(tmp / "dump" / "batch_0000.pkl", "rb") as f:
@@ -89,6 +88,25 @@ def se_level0(tmp_path_factory):
     ws, st, _, RS, Lpad = be.level_state(gi, P, recs, B, d["fwd"], d["rc"],
                                          be.W_MAX, be.S_MAX)
     return gi, P, ws, st, RS, Lpad, d["nmm_max"]
+
+
+@pytest.fixture(scope="module")
+def se_level0(tmp_path_factory):
+    """the se golden's level-0 grow inputs"""
+    return _level0(tmp_path_factory.mktemp("se_level0"), "se")
+
+
+@pytest.fixture(scope="module")
+def pe_level0(tmp_path_factory):
+    """the pe golden's level-0 grow inputs (mate-joined reads)"""
+    return _level0(tmp_path_factory.mktemp("pe_level0"), "pe")
+
+
+def _grow_args(ctx, st):
+    return (ctx.Gf, ctx.rs_dev, torch.from_numpy(ctx.rows),
+            torch.from_numpy(ctx.pm), ctx.ft_dev, ctx.ct_dev, ctx.sjt,
+            torch.from_numpy(st.fallback.astype(np.int32)),
+            int(ctx.wan.max()))
 
 
 def test_iteration_cap_reports_overflow_2(se_level0):
@@ -116,34 +134,71 @@ def test_iteration_cap_reports_overflow_2(se_level0):
     assert capped[6] == 2 and capped[7] == 8 and capped[3] < full[3]
 
 
-def test_grow_result_is_independent_of_the_chunk_size(se_level0):
-    """the same level grown in chunks of 2^14 and of 64 lanes: the same
-    retired lanes, in the same order, and the same fallbacks and counts"""
-    gi, P, ws, st, RS, Lpad, nmm = se_level0
-    ctx = ds.grow_context(gi, P, copy.deepcopy(st), ws, RS, nmm, Lpad,
-                          be.S_MAX, be.CHAIN_CAP, "cpu")
-    NP = len(ctx.wan)
-    args = (ctx.Gf, ctx.rs_dev, torch.from_numpy(ctx.rows),
-            torch.from_numpy(ctx.pm), ctx.ft_dev, ctx.ct_dev, ctx.sjt,
-            torch.from_numpy(st.fallback.astype(np.int32)),
-            int(ctx.wan.max()))
-    out = [ds.make_grow_engine2(ctx.cfg, 1 << 15, 1 << 17, a_cap, NP, ctx.B,
-                                ctx.lmax, int(gi.n_genome), ctx.ntab)(*args)
-           for a_cap in (1 << 14, 64)]
-    assert out[0][6] == out[1][6] == 0 and out[0][3] == out[1][3] > 0
-    assert out[1][7] > out[0][7]          # more chunks, more iterations
-    for k in (0, 1, 2, 4, 5):
-        assert torch.equal(out[0][k], out[1][k]), k
+def test_grow_result_is_independent_of_the_chunk_size(se_level0, pe_level0):
+    """the same level grown in chunks of 2^14 and of 64 lanes, and the pe
+    golden's in chunks of 2^16 (a W512 chunk on the card) and of 64: the
+    same retired lanes, in the same order, and the same fallbacks and
+    counts"""
+    for level, a_cap in ((se_level0, 1 << 14), (pe_level0, 1 << 16)):
+        gi, P, ws, st, RS, Lpad, nmm = level
+        ctx = ds.grow_context(gi, P, copy.deepcopy(st), ws, RS, nmm, Lpad,
+                              be.S_MAX, be.CHAIN_CAP, "cpu")
+        assert ctx.cfg.has_pe == (level is pe_level0)
+        NP = len(ctx.wan)
+        args = _grow_args(ctx, st)
+        out = [ds.make_grow_engine2(ctx.cfg, 1 << 15, 1 << 17, a, NP, ctx.B,
+                                    ctx.lmax, int(gi.n_genome), ctx.ntab)(
+            *args) for a in (a_cap, 64)]
+        assert out[0][6] == out[1][6] == 0 and out[0][3] == out[1][3] > 0
+        assert out[1][7] > out[0][7]          # more chunks, more iterations
+        for k in (0, 1, 2, 4, 5):
+            assert torch.equal(out[0][k], out[1][k]), k
 
 
-@pytest.mark.parametrize("s_max,read_len,want", [
-    (be.S_MAX, 1301, 1 << 14), (50, 91, 1 << 16), (50, 123, 1 << 16),
-    (50, 124, 1 << 15), (50, 201, 1 << 15), (50, 252, 1 << 14),
-    (50, 100_000, 1 << 10)])
-def test_chunk_lanes(s_max, read_len, want):
-    """level 0 always 2^14; W512 as many lanes as keep a chunk's
-    [lanes, 2 * Lpad + 5] int32 scan within CHUNK_SCAN_BYTES"""
-    got = ds.chunk_lanes(s_max, read_len + 2)
+def test_stitch_chunk_on_cpu_takes_the_plain_path(pe_level0):
+    """on CPU tensors the grow's chunks run the plain version: each chunk's
+    rows and ok are _stitch_chunk_plain's, and the kernel's launch counts
+    (LAUNCHES, GROW_STATS chunk_launches) stay where they were"""
+    gi, P, ws, st, RS, Lpad, nmm = pe_level0
+    n0 = ds.LAUNCHES
+    real = ds.stitch_chunk
+    calls = []
+
+    def spy(*a):
+        want = tuple(torch.zeros_like(t) for t in a[-1])
+        ok_w = ds._stitch_chunk_plain(*a[:-1], want)
+        ok = real(*a)
+        assert torch.equal(ok, ok_w)
+        assert all(torch.equal(g, w) for g, w in zip(a[-1], want))
+        calls.append(int(ok.sum()))
+        return ok
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ds, "stitch_chunk", spy)
+    ds.GROW_STATS.clear()
+    try:
+        ds.grow_chains_device(gi, P, copy.deepcopy(st), ws, RS, nmm, Lpad,
+                              be.S_MAX, be.CHAIN_CAP, "cpu")
+    finally:
+        mp.undo()
+    assert calls and sum(calls) > 0 and ds.LAUNCHES == n0
+    gs = ds.GROW_STATS
+    assert gs[be.W_MAX, "iterations"] == len(calls)
+    assert gs[be.W_MAX, "chunk_launches"] == 0
+
+
+@pytest.mark.parametrize("s_max,read_len,device,want", [
+    (be.S_MAX, 1301, "cpu", 1 << 14), (50, 91, "cpu", 1 << 16),
+    (50, 123, "cpu", 1 << 16), (50, 124, "cpu", 1 << 15),
+    (50, 201, "cpu", 1 << 15), (50, 252, "cpu", 1 << 14),
+    (50, 100_000, "cpu", 1 << 10), (be.S_MAX, 91, "cuda", 1 << 14),
+    (be.S_MAX, 1301, "cuda", 1 << 14), (50, 91, "cuda", 1 << 16),
+    (50, 201, "cuda", 1 << 16), (50, 303, "cuda", 1 << 16),
+    (50, 1301, "cuda", 1 << 16)])
+def test_chunk_lanes(s_max, read_len, device, want):
+    """level 0 always 2^14; W512 on a CUDA device 2^16 at every read length
+    (the kernel holds no scan tensors), on CPU tensors as many lanes as keep
+    a chunk's [lanes, 2 * Lpad + 5] int32 scan within CHUNK_SCAN_BYTES"""
+    got = ds.chunk_lanes(s_max, read_len + 2, torch.device(device))
     assert got == want
     if s_max > be.S_MAX and want < 1 << 16:
         assert 2 * got * 4 * (2 * (read_len + 2) + 5) > ds.CHUNK_SCAN_BYTES \
